@@ -22,14 +22,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+from pybnesian_tpu.runtime.config import enable_compile_cache  # noqa: E402
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+enable_compile_cache()
 
 N_TRAIN = 10_000
 N_TEST = 10_000
@@ -96,33 +91,11 @@ def main():
         evals += N_TEST
     base = evals / (time.time() - t0)
 
-    # hardware self-audit: the CKDE nodes dominate — exps per model.slogl
-    # = N_TEST·N_TRAIN·(1 for the parentless CKDE root + 2 per evidence
-    # CKDE node) — audited against the in-process pure-exp rate
-    try:
-        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        from micro_exp_roofline import ITERS, SHAPE, bare_exp_sum, timeit
-
-        import jax.numpy as jnp
-
-        x = jnp.asarray(
-            np.random.default_rng(0).normal(size=SHAPE).astype(np.float32)
-        )
-        exp_rate = SHAPE[0] * SHAPE[1] * ITERS / timeit(bare_exp_sum, x)
-        n_ckde = len(range(0, D, 2))
-        exps_per_slogl = N_TEST * N_TRAIN * (1 + 2 * (n_ckde - 1))
-        slogl_rate = ours / (D * N_TEST)
-        roofline_fraction = round(slogl_rate * exps_per_slogl / exp_rate, 2)
-    except Exception:
-        roofline_fraction = None
-
     print(json.dumps({
         "metric": "config3b_kde_lg_logl_evals_per_s_per_chip",
         "value": round(ours, 1),
         "unit": f"factor-row log-lik evals/s ({D}-node SPBN, {N_TEST} rows)",
         "vs_baseline": round(ours / base, 2),
-        "roofline_fraction": roofline_fraction,
-        "roofline_basis": "CKDE exp-equivalents/s vs in-process pure-exp rate",
     }))
 
 

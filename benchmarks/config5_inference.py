@@ -19,11 +19,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"),
-)
+from pybnesian_tpu.runtime.config import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def make_data(n=2000, seed=0):
@@ -92,7 +90,7 @@ def main():
         vg = jax.vmap(jax.value_and_grad(logp))
         th = jnp.zeros((n_chains, init.shape[0]), init.dtype)
 
-        CH = 20_000  # long dependent chain: amortizes the ~25 ms dispatch
+        CH = 20_000  # long dependent chain: amortizes the dispatch cost
 
         @jax.jit
         def grad_chain(t):

@@ -15,13 +15,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+from pybnesian_tpu.runtime.config import enable_compile_cache  # noqa: E402
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"),
-)
+enable_compile_cache()
 
 N, D = 4000, 2
 

@@ -1,4 +1,4 @@
-"""pybnesian_tpu: a TPU-native Bayesian-network learning and inference
+"""pybnesian_tpu: a JAX-native Bayesian-network learning and inference
 framework.
 
 Flat public API mirroring the reference's single extension module

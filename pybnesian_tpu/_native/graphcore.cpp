@@ -2,7 +2,7 @@
 // structure search.
 //
 // The reference implements its graph layer in C++ (graph/generic_graph.hpp);
-// this is the TPU build's native equivalent for the operations that are hot
+// this is this build's native equivalent for the operations that are hot
 // on the host during search: reachability / transitive closure (the
 // acyclicity checks of ArcOperatorSet::find_max, operators.hpp:488-560),
 // topological sort, and Meek-rule closure support. Exposed as a C ABI for

@@ -1,10 +1,10 @@
 """Column-store DataFrame: the data substrate of the framework.
 
-TPU-native rebuild of the reference's Arrow-``RecordBatch`` wrapper
+Rebuild of the reference's Arrow-``RecordBatch`` wrapper
 (reference dataset/dataset.hpp:784-1953). Design differences, deliberate:
 
 - Host numpy is the source of truth; device (jax) arrays are materialised
-  lazily per (columns, dtype) request and cached — the TPU analogue of the
+  lazily per (columns, dtype) request and cached — the device analogue of the
   reference's ``to_eigen`` extraction (dataset/dataset.hpp:238-335).
 - Null semantics: continuous nulls are NaN, discrete nulls are code ``-1``
   (the reference uses Arrow validity bitmaps; a combined bitmap over a column
@@ -18,6 +18,7 @@ TPU-native rebuild of the reference's Arrow-``RecordBatch`` wrapper
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Iterable, Sequence
 
 import numpy as np
@@ -58,20 +59,23 @@ class Column:
         return Column(name, self.values, self.categories)
 
 
-def _column_from_object(name: str, data) -> Column:
-    """Build a Column from a pandas Series / numpy array / python list."""
-    import pandas as pd
+def _loaded(module: str):
+    """The module if the program has imported it, else None. An object of
+    a pandas or pyarrow type can only exist once its package is imported,
+    so type checks go through here and never import either package."""
+    return sys.modules.get(module)
 
+
+def _column_from_object(name: str, data) -> Column:
+    """Build a Column from a pandas Series / pyarrow Array / numpy array /
+    python list."""
     if isinstance(data, Column):
         return data.rename(name)
-    # pyarrow is a hard dependency (same as the reference, which is built on
-    # Arrow end-to-end): arrow_interop.py and the factor sample() paths import
-    # it unconditionally.
-    import pyarrow as pa
-
-    if isinstance(data, (pa.Array, pa.ChunkedArray)):
+    pa = _loaded("pyarrow")
+    if pa is not None and isinstance(data, (pa.Array, pa.ChunkedArray)):
         data = data.to_pandas()
-    if isinstance(data, pd.Series):
+    pd = _loaded("pandas")
+    if pd is not None and isinstance(data, pd.Series):
         if isinstance(data.dtype, pd.CategoricalDtype):
             codes = np.asarray(data.cat.codes, dtype=np.int32)
             return Column(name, codes, tuple(str(c) for c in data.cat.categories))
@@ -95,6 +99,9 @@ def _column_from_object(name: str, data) -> Column:
         return Column(name, arr)
     arr = np.asarray(data)
     if arr.dtype == object:
+        # labels (strings, booleans, None) become categories through pandas
+        import pandas as pd
+
         return _column_from_object(name, pd.Series(data))
     if np.issubdtype(arr.dtype, np.integer):
         return Column(name, arr.astype(np.int64))
@@ -146,9 +153,8 @@ class DataFrame:
         PyCapsule interface, util/arrow_types.cpp)."""
         if isinstance(obj, DataFrame):
             return obj
-        import pandas as pd
-
-        if isinstance(obj, pd.DataFrame):
+        pd = _loaded("pandas")
+        if pd is not None and isinstance(obj, pd.DataFrame):
             return DataFrame.from_pandas(obj)
         if isinstance(obj, dict):
             return DataFrame([_column_from_object(k, v) for k, v in obj.items()])

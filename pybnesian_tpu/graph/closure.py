@@ -24,34 +24,31 @@ def _build_and_load():
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
-    _TRIED = True
     pkg_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     src = os.path.join(pkg_dir, "_native", "graphcore.cpp")
-    try:
-        from .._native import build_and_load
+    from .._native import build_and_load
 
-        lib = build_and_load(src)
-        lib.gc_transitive_closure.argtypes = [
-            ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
-        ]
-        lib.gc_has_path.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_uint64),
-            ctypes.c_int, ctypes.c_int,
-        ]
-        lib.gc_has_path.restype = ctypes.c_int
-        lib.gc_topological_sort.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_uint64),
-            ctypes.POINTER(ctypes.c_int),
-        ]
-        lib.gc_topological_sort.restype = ctypes.c_int
-        lib.gc_add_arc_legality.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_uint64),
-            ctypes.POINTER(ctypes.c_uint8),
-        ]
-        _LIB = lib
-    except Exception:
-        _LIB = None
+    lib = build_and_load(src)
+    lib.gc_transitive_closure.argtypes = [
+        ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
+    ]
+    lib.gc_has_path.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_uint64),
+        ctypes.c_int, ctypes.c_int,
+    ]
+    lib.gc_has_path.restype = ctypes.c_int
+    lib.gc_topological_sort.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_int),
+    ]
+    lib.gc_topological_sort.restype = ctypes.c_int
+    lib.gc_add_arc_legality.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_uint64),
+        ctypes.POINTER(ctypes.c_uint8),
+    ]
+    _LIB = lib
+    _TRIED = True
     return _LIB
 
 

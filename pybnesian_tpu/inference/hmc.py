@@ -1,10 +1,10 @@
 """Hamiltonian Monte Carlo + NUTS over network parameters.
 
-Net-new subsystem. TPU-first design: the leapfrog integrator, the NUTS tree
+Net-new subsystem. The leapfrog integrator, the NUTS tree
 doubling and the warmup adaptation (dual-averaging step size + diagonal mass
 matrix) are pure jittable functions; chains vectorize with vmap and shard
 over a device mesh axis (see :func:`sample_chains_sharded`) so chains/s scale
-with chips over ICI collectives.
+with devices.
 """
 
 from __future__ import annotations
@@ -586,7 +586,7 @@ def sample_chains_sharded(logdensity, init, key, mesh, axis: str = "data",
                           chains_per_device: int = 1, method: str = "hmc",
                           **kwargs):
     """Shard chains over a mesh axis: num_chains = axis size ×
-    chains_per_device. Embarrassingly parallel over ICI; the chains
+    chains_per_device. Embarrassingly parallel across devices; the chains
     dimension is sharded, everything else replicated."""
     from jax.sharding import NamedSharding
     from jax.sharding import PartitionSpec as P

@@ -113,7 +113,9 @@ def make_logdensity(model, df, beta_prior_scale: float = 10.0,
                 def one_config(p, mask):
                     beta = p[: k + 1]
                     logvar = p[k + 1]
-                    mean = beta[0] + X @ beta[1:]
+                    mean = beta[0] + jnp.matmul(
+                        X, beta[1:], precision=jax.lax.Precision.HIGHEST
+                    )
                     ll = (
                         -0.5 * jnp.square(y - mean) * jnp.exp(-logvar)
                         - 0.5 * logvar
@@ -161,7 +163,9 @@ def make_logdensity(model, df, beta_prior_scale: float = 10.0,
             def lg_piece(theta, y=y, X=X, w=w, lo=lo, hi=hi, k=k):
                 beta = theta[lo: lo + k + 1]
                 logvar = theta[hi - 1]
-                mean = beta[0] + X @ beta[1:]
+                mean = beta[0] + jnp.matmul(
+                    X, beta[1:], precision=jax.lax.Precision.HIGHEST
+                )
                 ll = (
                     -0.5 * jnp.square(y - mean) * jnp.exp(-logvar)
                     - 0.5 * logvar

@@ -3,7 +3,7 @@
 Rebuild of reference kde/KDE.{hpp,cpp} (~900 LoC) and kde/ProductKDE.{hpp,cpp}.
 The substract/solve/square/reduce OpenCL pipeline plus the 64-column tiling
 loop (KDE.hpp:592-640) collapses into: whiten once (host triangular solve),
-then one MXU matmul + fused logsumexp per test chunk
+then one matmul + fused logsumexp per test chunk
 (:mod:`pybnesian_tpu.ops.kde`).
 """
 
@@ -173,7 +173,7 @@ class KDE:
         Whitening happens on host in float64; the device copy keeps f64 only
         when ``jax_enable_x64`` is on (tests/CPU), otherwise it is downcast to
         f32 on transfer, so the permutation-invariance of the factor-API logl
-        is exact under x64 and holds to f32 tolerances on TPU. The batched
+        is exact under x64 and holds to f32 tolerances otherwise. The batched
         score kernels in ops/ keep the data dtype for speed either way.
         """
         import jax.numpy as jnp

@@ -1,8 +1,9 @@
 """KDTree: k-NN queries and subspace ball counts.
 
 API rebuild of reference kdtree/kdtree.{hpp,cpp} (748 LoC median-split tree).
-On TPU, tree traversal is hostile to the hardware; dense brute-force pairwise
-distances on the MXU beat it for the CMIknn workloads this class exists for
+On an accelerator, tree traversal is hostile to the hardware; dense
+brute-force pairwise distances beat it for the CMIknn workloads this class
+exists for
 (the reference itself ships a brute-force fallback,
 continuous/mutual_information.hpp:70). Host-side queries use
 scipy.spatial.cKDTree; the batched device path lives in

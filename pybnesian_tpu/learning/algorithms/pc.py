@@ -162,7 +162,7 @@ def _batched_sepset_search(edge_iters, test, alpha, bar=None):
     whole round is evaluated in ONE ``pvalue_batch`` call. An edge resolves
     on the FIRST candidate (in its own order) whose p-value exceeds alpha —
     identical results to the serial loop, with the per-test dispatch cost
-    amortised across every open edge of the sweep (the TPU-first redesign of
+    amortised across every open edge of the sweep (the batched redesign of
     reference pc.cpp:92-263's per-test loop).
     """
     active = dict(edge_iters)  # insertion-ordered

@@ -1,7 +1,7 @@
 """Independence test interfaces
 (reference learning/independences/independence.hpp:15-49).
 
-`pvalue_batch` is the TPU-first extension the reference lacks: constraint
+`pvalue_batch` is the batched extension the reference lacks: constraint
 searches (PC orders, v-structure votes) collect every candidate test of a
 sweep and evaluate them in one call, so device-backed tests (RCoT) can fuse
 hundreds of p-values into a handful of launches instead of paying the

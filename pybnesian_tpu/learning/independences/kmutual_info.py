@@ -3,7 +3,7 @@ p-values (Runge 2018).
 
 Rebuild of reference learning/independences/continuous/mutual_information.
 {hpp,cpp}: rank-transform data once, Kraskov-style CMI estimator, p-value =
-fraction of (locally) shuffled estimates ≥ the observed one. TPU-first: all
+fraction of (locally) shuffled estimates ≥ the observed one. Batched: all
 ``samples`` permutations evaluate in one jitted device loop over cached
 pairwise distances (:mod:`pybnesian_tpu.ops.knn`) instead of the reference's
 per-permutation kd-tree rebuilds.

@@ -11,7 +11,7 @@ semantics are preserved exactly (operators.cpp:19-437):
 - ``update_scores`` recomputes only the columns of nodes whose families
   changed.
 
-TPU-first difference: every (re)scoring pass collects its candidate families
+Batched difference: every (re)scoring pass collects its candidate families
 and evaluates them through ``Score.local_score_batch`` — one vmapped device
 call instead of one ``local_score`` per candidate (the reference's serial
 loop, operators.cpp:114-131).

@@ -1,6 +1,6 @@
 """Score interfaces (reference learning/scores/scores.hpp:14-101).
 
-TPU-first addition: ``local_score_batch`` — scores a *list* of candidate
+Batched addition: ``local_score_batch`` — scores a *list* of candidate
 families in one call. Concrete scores override it with a single batched
 device kernel (the replacement for the reference's one-`local_score`-per-cell
 loop, operators.cpp:100-131); the base implementation falls back to a host
@@ -62,7 +62,7 @@ class Score:
             return model.underlying_node_type(df, variable)
         return model.node_type(variable)
 
-    # ------------------------------------------------------- batched (TPU)
+    # --------------------------------------------------- batched (device)
     def local_score_batch(self, model, families: Sequence) -> np.ndarray:
         """families: sequence of (variable, parents) or
         (variable, parents, node_type). Returns (F,) scores."""

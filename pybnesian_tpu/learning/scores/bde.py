@@ -87,7 +87,7 @@ class BDe(Score):
         res += float(np.sum(gammaln(sum_alpha) - gammaln(sum_alpha + sums)))
         return res
 
-    # ------------------------------------------------------- batched (TPU)
+    # --------------------------------------------------- batched (device)
     def _device_codes(self):
         if self._codes_cache is None:
             import jax.numpy as jnp

@@ -209,7 +209,7 @@ class BIC(Score):
         n = self.df.valid_rows(variable, *discrete_parents, *continuous_parents)
         return loglik - math.log(n) * 0.5 * num_configs * (kc + 2)
 
-    # ------------------------------------------------------- batched (TPU)
+    # --------------------------------------------------- batched (device)
     def _device_data(self):
         if self._device_cache is None:
             cols = self.df.continuous_columns()
@@ -273,12 +273,12 @@ class BIC(Score):
 
     def _batched_discrete(self, fams) -> np.ndarray:
         """Discrete families via one scatter-count device call; small
-        batches stay on host — a remote-device round trip costs more than
-        stride-counting a few million items with numpy (adaptive dispatch,
-        same idea as BLAS small-matrix fast paths)."""
-        # crossover: the native counting core runs ~0.5 ns/row/column, so
-        # a family batch under ~10M row-items finishes before a single
-        # remote-device dispatch round trip (~25 ms) completes
+        batches stay on host, where stride-counting a few million items
+        beats a device dispatch (adaptive dispatch, same idea as BLAS
+        small-matrix fast paths)."""
+        # crossover: the native counting core runs ~0.5 ns/row/column; the
+        # 10M row-item threshold was set against an earlier accelerator's
+        # dispatch cost and has not been measured on a GPU
         if len(fams) * self.df.num_rows < 10_000_000:
             from . import discrete_native
 

@@ -26,74 +26,71 @@ def _load():
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
-    _TRIED = True
     pkg_dir = os.path.dirname(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     )
     src = os.path.join(pkg_dir, "_native", "discretecore.cpp")
-    try:
-        from ..._native import build_and_load
+    from ..._native import build_and_load
 
-        lib = build_and_load(src)
-        lib.dc_bic_batch.argtypes = [
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_int64, ctypes.POINTER(ctypes.c_double),
-        ]
-        lib.dc_bic_batch.restype = None
-        lib.dc_bic_addcand.argtypes = [
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
-            ctypes.c_int64, ctypes.POINTER(ctypes.c_double),
-        ]
-        lib.dc_bic_addcand.restype = None
-        lib.dc_hc.argtypes = [
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32, ctypes.c_int64,
-            ctypes.c_double, ctypes.c_int64, ctypes.c_int32,
-            ctypes.c_double,
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
-        ]
-        lib.dc_bde_batch.argtypes = [
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_int64, ctypes.c_double,
-            ctypes.POINTER(ctypes.c_double),
-        ]
-        lib.dc_bde_batch.restype = None
-        lib.dc_hc.restype = ctypes.c_int32
-        lib.dc_chi2_batch.argtypes = [
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_double),
-        ]
-        lib.dc_chi2_batch.restype = None
-        lib.dc_gtest_batch.argtypes = [
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-            ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
-        ]
-        lib.dc_gtest_batch.restype = None
-        lib.dc_grouped_moments.argtypes = [
-            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int32,
-            ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
-        ]
-        lib.dc_grouped_moments.restype = None
-        _LIB = lib
-    except Exception:  # pragma: no cover - toolchain specific
-        _LIB = None
+    lib = build_and_load(src)
+    lib.dc_bic_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_double),
+    ]
+    lib.dc_bic_batch.restype = None
+    lib.dc_bic_addcand.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_double),
+    ]
+    lib.dc_bic_addcand.restype = None
+    lib.dc_hc.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32, ctypes.c_int64,
+        ctypes.c_double, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_double,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
+    ]
+    lib.dc_bde_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int64, ctypes.c_double,
+        ctypes.POINTER(ctypes.c_double),
+    ]
+    lib.dc_bde_batch.restype = None
+    lib.dc_hc.restype = ctypes.c_int32
+    lib.dc_chi2_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_double),
+    ]
+    lib.dc_chi2_batch.restype = None
+    lib.dc_gtest_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+    ]
+    lib.dc_gtest_batch.restype = None
+    lib.dc_grouped_moments.argtypes = [
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+    ]
+    lib.dc_grouped_moments.restype = None
+    _LIB = lib
+    _TRIED = True
     return _LIB
 
 

@@ -11,6 +11,7 @@ homogeneity, default/compatible factor types, and arc legality
 from __future__ import annotations
 
 import math
+import sys
 from typing import Sequence
 
 import numpy as np
@@ -24,7 +25,7 @@ _LOG_2PI = math.log(2.0 * math.pi)
 # ---------------------------------------------------------------------------
 # Native all-LG serial tier (pybnesian_tpu/_native/lgfast.c): small/medium
 # pure-LinearGaussian networks run fit / slogl / sample as ONE C call each.
-# The TPU kernels win every batched workload; this tier wins the
+# The device kernels win every batched workload; this tier wins the
 # serial-shaped ones (BASELINE config 1) where per-call Python plumbing,
 # not compute, is the cost (reference runs the same loops in C++:
 # mle_LinearGaussianCPD.hpp:12-69, BayesianNetwork.hpp:960-1066).
@@ -35,20 +36,17 @@ _LGFAST_TRIED = False
 def _lgfast_mod():
     global _LGFAST, _LGFAST_TRIED
     if not _LGFAST_TRIED:
+        import os
+
+        from .._native import build_ext_and_import
+
+        src = os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "_native",
+            "lgfast.c",
+        )
+        _LGFAST = build_ext_and_import(src, "lgfast")
         _LGFAST_TRIED = True
-        try:
-            import os
-
-            from .._native import build_ext_and_import
-
-            src = os.path.join(
-                os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                "_native",
-                "lgfast.c",
-            )
-            _LGFAST = build_ext_and_import(src, "lgfast")
-        except Exception:
-            _LGFAST = None
     return _LGFAST
 
 
@@ -57,16 +55,13 @@ def _lgfast_mod():
 # mutation replaces the Index). A 2-slot MRU avoids iterating arrow-backed
 # Index objects (~µs each) on every fit/slogl call.
 _COLMAP: list = [None, None]
-_PD_DF = None
 
 
-def _pandas_df_cls():
-    global _PD_DF
-    if _PD_DF is None:
-        import pandas
-
-        _PD_DF = pandas.DataFrame
-    return _PD_DF
+def _is_pandas_frame(df) -> bool:
+    """``type(df) is pandas.DataFrame`` without importing pandas: such an
+    object exists only once the program has imported it."""
+    pd = sys.modules.get("pandas")
+    return pd is not None and type(df) is pd.DataFrame
 
 
 def _df_colmap(df):
@@ -130,7 +125,7 @@ def _lg_factor_native_slogl(cpd, df):
         or not beta.flags.c_contiguous
     ):
         return None
-    if type(df) is (_PD_DF or _pandas_df_cls()):
+    if _is_pandas_frame(df):
         mgr = getattr(df, "_mgr", None)
         blocks = getattr(mgr, "blocks", None)
         if not blocks or any(b.dtype != np.float64 for b in blocks):
@@ -846,7 +841,7 @@ class BayesianNetworkBase:
                 return False
         except Exception:
             return False
-        if type(df) is not (_PD_DF or _pandas_df_cls()):
+        if not _is_pandas_frame(df):
             return False
         mgr = getattr(df, "_mgr", None)
         blocks = getattr(mgr, "blocks", None)
@@ -1105,7 +1100,7 @@ class BayesianNetworkBase:
 
     def _lg_native_slogl(self, st, df):
         """slogl as one C call; None → caller runs the generic path."""
-        if type(df) is not (_PD_DF or _pandas_df_cls()):
+        if not _is_pandas_frame(df):
             return None
         cols = df.columns
         if cols is st["cols_obj"] or tuple(cols) == st["dfcols"]:
@@ -1240,7 +1235,7 @@ class BayesianNetworkBase:
     # ------------------------------------------------------------ likelihood
     def _batched_ckde_logl(self, df: DataFrame) -> dict:
         """Per-row logl of all plain-CKDE nodes in ONE device launch
-        (TPU-first replacement for the per-node factor.logl loop: each
+        (batched replacement for the per-node factor.logl loop: each
         separate launch costs a dispatch round trip). Returns {node: (m,)
         float64 array}; empty dict when fewer than two CKDE nodes."""
         from ..factors.ckde import CKDE
@@ -1370,8 +1365,6 @@ class BayesianNetworkBase:
             if out is not None:
                 return out
         self._check_fitted()
-        import pandas as pd
-
         from ..factors.lineargaussian import LinearGaussianCPD
 
         order = self._graph.topological_sort()

@@ -1,6 +1,6 @@
 """Device kernels for discrete (multinomial) factors and scores.
 
-TPU-first replacement for the reference's stride-based CPT counting
+Batched replacement for the reference's stride-based CPT counting
 (factors/discrete/discrete_indices.{hpp,cpp}) and the serial per-family
 BDe/BIC count loops (learning/scores/bde.cpp, bic.cpp:66-97): a batch of
 candidate families is counted with one scatter-add per family (vmapped), and
@@ -33,10 +33,10 @@ def _family_counts(codes, cards, vi, pi, pm, max_cells, max_pconfigs):
     num_pconfigs = jnp.prod(pcard)
     cell = vcode + vcard * pconfig
     cell = jnp.where(valid, cell, max_cells)
-    # Histogram via comparison-reduction rather than scatter-add: TPU
-    # scatters serialize, while an (C, N) equality + row-reduce fuses onto
-    # the VPU in tiles (C and N are both static here).
-    # default float dtype: f64 under jax_enable_x64 (tests), f32 on TPU
+    # Histogram via comparison-reduction rather than scatter-add: an
+    # (C, N) equality + row-reduce is one fused reduction with no write
+    # conflicts (C and N are both static here).
+    # default float dtype: f64 under jax_enable_x64 (tests), f32 otherwise
     one = jnp.ones((), jnp.zeros(0).dtype)
     counts = jnp.sum(
         (jnp.arange(max_cells)[:, None] == cell[None, :]) * one, axis=1

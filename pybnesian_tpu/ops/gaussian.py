@@ -1,6 +1,6 @@
 """Device kernels for linear-Gaussian factors and scores.
 
-The TPU-first replacement for the reference's per-family Eigen closed forms
+The batched replacement for the reference's per-family Eigen closed forms
 (reference learning/parameters/mle_LinearGaussianCPD.{hpp,cpp} and
 learning/scores/bic.cpp:12-27). Instead of fitting one family at a time on
 host, *batches of candidate families* (the unit of work of structure search)
@@ -12,7 +12,11 @@ are evaluated in a single vmapped kernel:
   validity), reproducing the reference's pairwise-deletion semantics
   (dataset/dataset.hpp:238-335) without dynamic shapes;
 - sufficient statistics are one masked Gram matrix per family — an (n × p)
-  matmul that XLA tiles onto the MXU — followed by a tiny masked solve.
+  matmul — followed by a tiny masked solve.
+
+The Grams are uncentred, so ``rss = yy − β·b`` cancels: every matmul here
+runs at ``Precision.HIGHEST`` (full float32; the default lets a GPU use
+TF32, which keeps about three decimal digits).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import jax
 import jax.numpy as jnp
 
 LOG_2PI = math.log(2.0 * math.pi)
+HIGHEST = jax.lax.Precision.HIGHEST
 _MACHINE_TOL = 2.220446049250313e-16 * 4
 
 
@@ -53,7 +58,7 @@ def family_grams(values, valid, var_idx, parent_idx, parent_mask):
         design, w = _family_design(values, valid, vi, pi, pm)
         gram = jnp.einsum(
             "ni,nj->ij", design * w[:, None], design,
-            preferred_element_type=design.dtype,
+            precision=HIGHEST, preferred_element_type=design.dtype,
         )
         return gram, jnp.sum(w)
 
@@ -72,11 +77,10 @@ def lg_params_from_gram(gram, parent_mask, n_eff):
     A = gram[: P + 1, : P + 1] * m[:, None] * m[None, :] + jnp.diag(1.0 - m)
     b = gram[: P + 1, P + 1] * m
     yy = gram[P + 1, P + 1]
-    # Gram matrices are SPD: Cholesky solve (TPU supports it at every dtype,
-    # unlike LU decomposition) and it is the faster path on the MXU.
+    # Gram matrices are SPD: a Cholesky solve, at every dtype.
     chol = jnp.linalg.cholesky(A)
     beta = jax.scipy.linalg.cho_solve((chol, True), b)
-    rss = yy - beta @ b
+    rss = yy - jnp.dot(beta, b, precision=HIGHEST)
     rss = jnp.maximum(rss, 0.0)
     k = jnp.sum(parent_mask)
     dof = n_eff - k - 1.0
@@ -133,10 +137,10 @@ def batched_lg_cv_loglik(values, valid, train_mask, test_mask, var_idx,
             wtr = w * tm
             gram = jnp.einsum(
                 "ni,nj->ij", design * wtr[:, None], design,
-                preferred_element_type=design.dtype,
+                precision=HIGHEST, preferred_element_type=design.dtype,
             )
             beta, variance, _ = lg_params_from_gram(gram, pm, jnp.sum(wtr))
-            mean = design[:, :-1] @ beta
+            mean = jnp.matmul(design[:, :-1], beta, precision=HIGHEST)
             ll = (
                 -0.5 * jnp.square(y - mean) / variance
                 - 0.5 * jnp.log(variance)
@@ -167,7 +171,7 @@ def batched_lg_holdout_loglik(train_values, train_valid, test_values,
     def one(vi, pi, pm, beta, variance):
         design, w = _family_design(test_values, test_valid, vi, pi, pm)
         y = design[:, -1]
-        mean = design[:, :-1] @ beta
+        mean = jnp.matmul(design[:, :-1], beta, precision=HIGHEST)
         ll = (
             -0.5 * jnp.square(y - mean) / variance
             - 0.5 * jnp.log(variance)
@@ -184,7 +188,7 @@ def batched_lg_holdout_loglik(train_values, train_valid, test_values,
 def lg_logl(y, X, beta, variance):
     """Per-row log N(y | beta0 + X·beta[1:], variance)
     (reference LinearGaussianCPD.cpp:93-119)."""
-    mean = beta[0] + X @ beta[1:]
+    mean = beta[0] + jnp.matmul(X, beta[1:], precision=HIGHEST)
     return (
         -0.5 * jnp.square(y - mean) / variance
         - 0.5 * jnp.log(variance)

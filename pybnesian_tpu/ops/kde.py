@@ -1,14 +1,15 @@
 """Device kernels for Gaussian kernel density estimation.
 
-TPU-first replacement for the reference's OpenCL KDE pipeline
+Batched replacement for the reference's OpenCL KDE pipeline
 (kde/opencl_kernels/KDE.cl.src: solve/square/logl_values/logsumexp kernels and
 the ≤64-column tiling loop, opencl/opencl_config.hpp:344-536). The key
 restructuring: whiten train/test once with a triangular solve, then the whole
 N_train × M_test pair matrix is ONE matmul —
-``‖a−b‖² = ‖a‖² + ‖b‖² − 2a·b`` — which XLA tiles onto the MXU, followed by a
-fused logsumexp. Test rows are processed in fixed-size chunks (lax.map) to
-bound memory, the same role as the reference's 64-column loop but with
-MXU-aligned chunk sizes.
+``‖a−b‖² = ‖a‖² + ‖b‖² − 2a·b`` — followed by a fused logsumexp. Test rows
+are processed in fixed-size chunks (lax.map) to bound memory, the same role
+as the reference's 64-column loop. On a GPU the CV-scoring pass instead runs
+the streaming Pallas kernel (:func:`ckde_cv_alldevice_flash`), which never
+writes the pair matrix to device memory.
 """
 
 from __future__ import annotations
@@ -20,15 +21,16 @@ import jax
 import jax.numpy as jnp
 
 LOG_2PI = math.log(2.0 * math.pi)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _dot(a, b):
-    """Pairwise-distance cross terms need full f32 accuracy: the default
-    matmul precision lets XLA use bf16 passes (MXU on TPU, oneDNN on CPU),
-    which destroys the ||a||^2+||b||^2-2ab cancellation exactly at the small
-    distances that dominate the logsumexp. HIGHEST forces full precision."""
-    return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST,
-                   preferred_element_type=a.dtype)
+    """Matmuls on the KDE path need full float32 accuracy: the default
+    precision lets XLA use reduced-precision passes (TF32 on a GPU, bf16
+    passes on some CPUs), which destroys the ||a||^2+||b||^2-2ab
+    cancellation exactly at the small distances that dominate the
+    logsumexp, and perturbs the bandwidth and the whitening."""
+    return jnp.dot(a, b, precision=HIGHEST, preferred_element_type=a.dtype)
 
 
 def cdiv(a: int, b: int) -> int:
@@ -243,7 +245,8 @@ def ckde_cv_alldevice(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
             mean = jnp.sum(train * w[:, None], axis=0) / n_eff
             xc = (train - mean[None, :]) * (w[:, None] * cmask[None, :])
             cov = jnp.einsum(
-                "ni,nj->ij", xc, xc, preferred_element_type=data.dtype
+                "ni,nj->ij", xc, xc, precision=HIGHEST,
+                preferred_element_type=data.dtype,
             ) / (n_eff - 1.0)
             if rule == "nr":
                 k = (4.0 / (n_eff * (d_eff + 2.0))) ** (2.0 / (d_eff + 4.0))
@@ -264,13 +267,13 @@ def ckde_cv_alldevice(data, null_mask, col_idx, col_mask, tr_idx, tr_mask,
                 - 0.5 * (d_eff - 1.0) * LOG_2PI
                 - jnp.log(n_eff)
             )
-            jtr = train @ Linv.T
+            jtr = _dot(train, Linv.T)
             test = fam[tei]
             wte = tem * fvalid[tei]
-            jte = test @ Linv.T
+            jte = _dot(test, Linv.T)
             # whitened variable coordinate (marg_d2 = joint_d2 − Δz_var²)
-            zv_tr = jtr @ vsel
-            zv_te = jte @ vsel
+            zv_tr = _dot(jtr, vsel)
+            zv_te = _dot(jte, vsel)
             neg = jnp.where(w > 0, 0.0, -jnp.inf)
             jn = jnp.sum(jnp.square(jtr), axis=1)
 
@@ -328,7 +331,8 @@ def ckde_cv_whitened_parts(data, null_mask, col_idx, col_mask, tr_idx,
             mean = jnp.sum(train * w[:, None], axis=0) / n_eff
             xc = (train - mean[None, :]) * (w[:, None] * cmask[None, :])
             cov = jnp.einsum(
-                "ni,nj->ij", xc, xc, preferred_element_type=data.dtype
+                "ni,nj->ij", xc, xc, precision=HIGHEST,
+                preferred_element_type=data.dtype,
             ) / (n_eff - 1.0)
             if rule == "nr":
                 k = (4.0 / (n_eff * (d_eff + 2.0))) ** (2.0 / (d_eff + 4.0))
@@ -340,10 +344,10 @@ def ckde_cv_whitened_parts(data, null_mask, col_idx, col_mask, tr_idx,
             logdiag = jnp.log(jnp.abs(jnp.diag(L)))
             # lndiff = jln − mln = −log|L_vv| − ½ log 2π (n_eff terms cancel)
             lndiff = -jnp.sum(logdiag * vsel) - 0.5 * LOG_2PI
-            jtr = train @ Linv.T
-            jte = fam[tei] @ Linv.T
-            zv_tr = jtr @ vsel
-            zv_te = jte @ vsel
+            jtr = _dot(train, Linv.T)
+            jte = _dot(fam[tei], Linv.T)
+            zv_tr = _dot(jtr, vsel)
+            zv_te = _dot(jte, vsel)
             neg = jnp.where(w > 0, 0.0, -jnp.inf)
             wte = tem * fvalid[tei]
             ok = (n_eff > d_eff).astype(data.dtype)
@@ -354,104 +358,70 @@ def ckde_cv_whitened_parts(data, null_mask, col_idx, col_mask, tr_idx,
     return jax.vmap(family)(col_idx, col_mask)
 
 
-@partial(jax.jit,
-         static_argnames=("rule", "block_m", "block_n", "interpret"))
+def cv_pairs_route(platform: str, dtype) -> str:
+    """Which kernel runs the CV-CKDE pairwise pass: ``"triton"`` (the
+    streaming Pallas kernel, :func:`ckde_cv_alldevice_flash`) for float32
+    data on a GPU, ``"xla"`` (:func:`ckde_cv_alldevice`) everywhere else."""
+    if platform == "gpu" and jnp.dtype(dtype) == jnp.float32:
+        return "triton"
+    return "xla"
+
+
+@partial(jax.jit, static_argnames=("rule", "block_m", "block_n",
+                                   "num_warps", "interpret"))
 def ckde_cv_alldevice_flash(data, null_mask, col_idx, col_mask, tr_idx,
                             tr_mask, te_idx, te_mask, rule="nr",
-                            block_m: int = 256, block_n: int = 1024,
-                            interpret: bool = False):
-    """Flash variant of :func:`ckde_cv_alldevice`: whitening in XLA
+                            block_m: int = 32, block_n: int = 128,
+                            num_warps: int = 4, interpret: bool = False):
+    """Streaming variant of :func:`ckde_cv_alldevice`: whitening in XLA
     (:func:`ckde_cv_whitened_parts`), then the pairwise double logsumexp in
-    a Pallas kernel that streams train blocks through VMEM — no (nte × ntr)
-    intermediate in HBM. Same arguments/semantics as
-    :func:`ckde_cv_alldevice`; requires float32 inputs."""
+    the Pallas kernel :func:`pybnesian_tpu.ops.pallas_kde.
+    pallas_ckde_cv_pairs`, which never writes the (nte × ntr) logits to
+    device memory. Same arguments and result as :func:`ckde_cv_alldevice`;
+    float32 only. Train rows are padded to a multiple of ``block_n``, test
+    rows to a multiple of ``block_m`` and the column count to a power of
+    two (at least 2)."""
     from .pallas_kde import pallas_ckde_cv_pairs
-    import jax.numpy as jnp
 
     jtr, neg, zv_tr, jte, zv_te, wte, lndiff, ok = ckde_cv_whitened_parts(
         data, null_mask, col_idx, col_mask, tr_idx, tr_mask, te_idx, te_mask,
         rule=rule,
     )
-    F, K, ntr, dpad = jtr.shape
+    F, K, ntr, dj = jtr.shape
     nte = jte.shape[2]
     pad_n = next_multiple(ntr, block_n) - ntr
-    if pad_n:
-        jtr = jnp.pad(jtr, ((0, 0), (0, 0), (0, pad_n), (0, 0)))
-        neg = jnp.pad(neg, ((0, 0), (0, 0), (0, pad_n)),
-                      constant_values=-jnp.inf)
-        zv_tr = jnp.pad(zv_tr, ((0, 0), (0, 0), (0, pad_n)))
+    pad_m = next_multiple(nte, block_m) - nte
+    pad_d = max(2, 1 << (dj - 1).bit_length()) - dj
+    jtr = jnp.pad(jtr, ((0, 0), (0, 0), (0, pad_n), (0, pad_d)))
+    neg = jnp.pad(neg, ((0, 0), (0, 0), (0, pad_n)),
+                  constant_values=-jnp.inf)
+    zv_tr = jnp.pad(zv_tr, ((0, 0), (0, 0), (0, pad_n)))
+    jte = jnp.pad(jte, ((0, 0), (0, 0), (0, pad_m), (0, pad_d)))
+    zv_te = jnp.pad(zv_te, ((0, 0), (0, 0), (0, pad_m)))
+    dpad = dj + pad_d
     # evidence-free families: the marginal logsumexp is exactly log n_eff —
     # flag them so the kernel skips the whole marginal pass
     no_ev = jnp.broadcast_to(
         (jnp.sum(col_mask, axis=1) <= 1.0)[:, None], (F, K)
-    ).astype(jnp.float32)
+    )
     n_eff = jnp.sum((neg == 0.0).astype(jnp.float32), axis=2)  # (F, K)
     lm_const = jnp.log(jnp.maximum(n_eff, 1.0))
+    G = F * K
     out = pallas_ckde_cv_pairs(
-        jtr.reshape(F * K, -1, dpad).astype(jnp.float32),
-        neg.reshape(F * K, -1).astype(jnp.float32),
-        zv_tr.reshape(F * K, -1).astype(jnp.float32),
-        jte.reshape(F * K, nte, dpad).astype(jnp.float32),
-        zv_te.reshape(F * K, nte).astype(jnp.float32),
-        no_ev.reshape(F * K),
-        lm_const.reshape(F * K),
-        block_m=block_m, block_n=block_n, interpret=interpret,
-    ).reshape(F, K, nte)
-    return _flash_reduce(out, wte, lndiff, ok)
-
-
-@jax.jit
-def _flash_reduce(out, wte, lndiff, ok):
+        jtr.reshape(G, -1, dpad).astype(jnp.float32),
+        neg.reshape(G, -1).astype(jnp.float32),
+        zv_tr.reshape(G, -1).astype(jnp.float32),
+        jte.reshape(G, -1, dpad).astype(jnp.float32),
+        zv_te.reshape(G, -1).astype(jnp.float32),
+        no_ev.reshape(G),
+        lm_const.reshape(G),
+        block_m=block_m, block_n=block_n, num_warps=num_warps,
+        interpret=interpret,
+    ).reshape(F, K, -1)[:, :, :nte]
     out = jnp.where(wte > 0, out, 0.0)
     fold_ll = jnp.sum(out * wte, axis=2) + lndiff * jnp.sum(wte, axis=2)
     fold_ll = jnp.where(ok > 0, fold_ll, jnp.nan)
     return jnp.sum(fold_ll, axis=1)
-
-
-def flash_cv_selfcheck(rule: str = "nr", atol: float = 5e-2,
-                       rtol: float = 1e-4, interpret: bool = False):
-    """One-time parity gate for the Pallas flash CV kernel: run
-    :func:`ckde_cv_alldevice_flash` and :func:`ckde_cv_alldevice` on the same
-    small synthetic batch and compare. Returns ``(ok, max_abs_diff)``;
-    raises whatever the flash path raises if it cannot run at all.
-
-    The tolerance is on SUMMED fold log-likelihoods over 256 test points
-    (values O(1e3)), so atol=5e-2 is ~1e-5 relative — far tighter than any
-    miscompiled kernel would pass, loose enough for f32 accumulation-order
-    differences between the two implementations."""
-    import numpy as np
-
-    rng = np.random.default_rng(0)
-    n, D = 512, 3
-    data = jnp.asarray(rng.normal(size=(n, D)).astype(np.float32))
-    null_mask = jnp.zeros((n, D), jnp.float32)
-    # family 0 is evidence-free (1-D): covers the flash kernel's
-    # marginal-skip branch; family 1 is 3-D
-    col_idx = jnp.asarray([[0, 0, 0], [2, 0, 1]], jnp.int32)
-    col_mask = jnp.asarray([[1, 0, 0], [1, 1, 1]], jnp.float32)
-    K, ntr, nte = 2, 256, 256
-    tr_idx = jnp.asarray(
-        np.stack([np.arange(ntr), np.arange(n - ntr, n)]).astype(np.int32)
-    )
-    tr_mask = jnp.ones((K, ntr), jnp.float32)
-    te_idx = jnp.asarray(
-        np.stack([np.arange(n - nte, n), np.arange(nte)]).astype(np.int32)
-    )
-    te_mask = jnp.ones((K, nte), jnp.float32)
-    args = (data, null_mask, col_idx, col_mask, tr_idx, tr_mask, te_idx,
-            te_mask)
-    flash = np.asarray(
-        ckde_cv_alldevice_flash(*args, rule=rule, interpret=interpret),
-        np.float64,
-    )
-    xla = np.asarray(ckde_cv_alldevice(*args, chunk=256, rule=rule),
-                     np.float64)
-    diff = float(np.max(np.abs(flash - xla)))
-    ok = bool(
-        np.all(np.isfinite(flash))
-        and np.allclose(flash, xla, atol=atol, rtol=rtol)
-    )
-    return ok, diff
 
 
 @partial(jax.jit, static_argnames=("chunk",))
@@ -558,7 +528,7 @@ def ucv_pair_sums(train_white, valid, chunk=512):
 
 @jax.jit
 def gumbel_categorical(key, logits):
-    """Row-wise categorical sample via Gumbel-max — the TPU replacement for
+    """Row-wise categorical sample via Gumbel-max — the replacement for
     the reference's prefix-sum inverse-CDF kernels
     (accum_sum_mat_cols / find_random_indices, KDE.cl.src:253-375)."""
     g = jax.random.gumbel(key, logits.shape, logits.dtype)

@@ -1,8 +1,8 @@
 """Device kernels for the CMIknn (Runge 2018) conditional-independence test.
 
-TPU-first restructuring of the reference's serial kd-tree pipeline
+Batched restructuring of the reference's serial kd-tree pipeline
 (continuous/mutual_information.cpp + kdtree/): pairwise Chebyshev distance
-matrices are computed once on the MXU; the k-NN radius is a top_k; all
+matrices are computed once on device; the k-NN radius is a top_k; all
 permutations of the shuffle test run through one jitted lax.map, reusing the
 fixed y/z distance blocks — only the x distances change per permutation.
 """

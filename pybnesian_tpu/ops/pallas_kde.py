@@ -1,17 +1,18 @@
-"""Pallas TPU kernels for KDE pairwise log-likelihood.
+"""Pallas kernel (Triton route) for the CV-CKDE pairwise double logsumexp.
 
-Flash-attention-style streaming logsumexp: the (M_test × N_train) pair
-matrix never touches HBM — each grid step holds one (block_m × block_n) tile
-in VMEM with running max/sum accumulators (the online-logsumexp recurrence).
-This is the Pallas replacement for the XLA path in
-:func:`pybnesian_tpu.ops.kde.kde_logl_whitened`; at small kernel dimension d
-the distance is computed by direct per-dimension accumulation on the VPU
-(the a²+b²−2ab MXU trick has no K to amortize when d ≤ 8).
+Streaming logsumexp: one program owns ``block_m`` test points of one
+(family, fold) pair and walks the train points in tiles of ``block_n``,
+keeping the maxima and exp-sums of the joint and of the evidence marginal in
+registers. The (nte × ntr) pair matrix never exists in device memory, where
+the XLA path (:func:`pybnesian_tpu.ops.kde.ckde_cv_alldevice`) writes it
+once per test chunk and reads it back for the max and the exp-sum passes.
 
-Measured on TPU v5e (10240x10240 pairs, d=3): Pallas 0.50 ms/call vs the
-XLA path 0.51 ms/call — both saturate the VPU exp/transcendental roofline, so
-the XLA path remains the default; this kernel documents the hand-written
-ceiling and is the template for future fused variants.
+With d ≤ 8 whitened coordinates the squared distance is d FMAs per pair on
+the CUDA cores (the contraction is far below the tensor cores' smallest K),
+so the kernel is bound by the exps and the FMAs around them. Train data is
+stored coordinate-major, (G, dpad, ntr): each coordinate of a train tile is
+one coalesced vector load. On an H100 (400 W limit) it takes 4.2 ms per
+config-3 batch against 12.0 ms for the XLA kernel (PERF.md).
 """
 
 from __future__ import annotations
@@ -21,231 +22,125 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-LOG_2PI = math.log(2.0 * math.pi)
+__all__ = ["pallas_ckde_cv_pairs"]
 
-__all__ = ["pallas_kde_logl", "pallas_ckde_cv_pairs", "pallas_available"]
-
-
-def pallas_available() -> bool:
-    import jax
-
-    return jax.default_backend() == "tpu"
-
-
-def _kde_kernel(train_ref, valid_ref, test_ref, lognorm_ref, out_ref, *,
-                block_n: int):
-    """One grid step: all train blocks against one test block."""
-    block_m = test_ref.shape[0]
-    d = test_ref.shape[1]
-    n_total = train_ref.shape[0]
-    n_blocks = n_total // block_n
-
-    test = test_ref[:]  # (block_m, d)
-
-    def body(nb, carry):
-        m_run, s_run = carry
-        tb = train_ref[pl.ds(nb * block_n, block_n), :]  # (block_n, d)
-        vb = valid_ref[pl.ds(nb * block_n, block_n), :]  # (block_n, 1)
-        d2 = jnp.zeros((block_m, block_n), jnp.float32)
-        for k in range(d):
-            diff = test[:, k][:, None] - tb[:, k][None, :]
-            d2 = d2 + diff * diff
-        logits = -0.5 * d2 + jnp.where(vb[:, 0] > 0, 0.0, -jnp.inf)[None, :]
-        bm = jnp.max(logits, axis=1, keepdims=True)
-        new_m = jnp.maximum(m_run, bm)
-        scale = jnp.exp(m_run - new_m)
-        s_run = s_run * scale + jnp.sum(
-            jnp.exp(logits - new_m), axis=1, keepdims=True
-        )
-        return new_m, s_run
-
-    m0 = jnp.full((block_m, 1), -jnp.inf, jnp.float32)
-    s0 = jnp.zeros((block_m, 1), jnp.float32)
-    m_run, s_run = jax.lax.fori_loop(0, n_blocks, body, (m0, s0))
-    out_ref[:] = m_run + jnp.log(s_run) + lognorm_ref[0, 0]
+#: finite "−inf" for the running max: keeps all-padding tiles NaN-free
+_NEG_INIT = -1e30
+#: inputs are pre-scaled by sqrt(½·log2 e), so the kernel works in base 2
+#: (``exp2`` lowers to the hardware ex2 instruction) with no per-pair scale
+_SCALE = math.sqrt(0.5 * math.log2(math.e))
 
 
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-except ImportError:  # pragma: no cover
-    pl = None
-    pltpu = None
-
-
-def _ckde_cv_kernel(flag_ref, lmc_ref, jtr_ref, neg_ref, zvtr_ref, jte_ref,
+def _ckde_cv_kernel(flag_ref, lmc_ref, tr_ref, neg_ref, zvtr_ref, te_ref,
                     zvte_ref, out_ref, *, block_n: int, dpad: int):
-    """One grid step: all train blocks against one test block of one
-    (family, fold) pair, with BOTH the joint and the marginal online
-    logsumexp in a single pass — the (nte × ntr) pair matrix never leaves
-    VMEM. The marginal logits come from the joint's for 2 flops:
-    ``−½ marg_d2 = −½ joint_d2 + ½ Δz_var²`` (shared-Cholesky layout of
-    ops/kde.py ckde_cv_whitened_parts).
+    """One program: ``block_m`` test points of one (family, fold) pair
+    against every train tile, in base 2. The marginal logits come from the
+    joint's for 3 flops: ``marg = joint + Δz_var²`` (the shared-Cholesky
+    layout of :func:`pybnesian_tpu.ops.kde.ckde_cv_whitened_parts`).
 
-    Train-side arrays arrive TRANSPOSED and AUGMENTED: jtr_ref is
-    (dpad+2, ntr) with rows ``[train_t; 1; ‖train‖²]`` and jte_ref is
-    (block_m, dpad+2) with columns ``[−2·test, ‖test‖², 1]``, so the whole
-    pairwise squared distance is ONE MXU matmul —
-    ``d2 = −2·te·tr + ‖te‖² + ‖tr‖²`` — leaving the VPU nothing but the two
-    exps and the online-max/sum updates. The large ntr axis sits in the TPU
-    lane dimension (an (ntr, dpad) layout would pad dpad≤8 columns to 128
-    lanes and blow the VMEM budget ~30×)."""
-    block_m = jte_ref.shape[1]
-    n_total = jtr_ref.shape[2]
-    n_blocks = n_total // block_n
-
-    test_aug = jte_ref[0]      # (block_m, dpad+2)
-    zte = zvte_ref[0, :, 0]    # (block_m,)
-    # evidence-free family: the marginal logsumexp is the constant
-    # log n_eff (all marginal logits are 0 for valid train rows), so the
-    # whole marginal online-logsumexp — ~40% of the VPU work — is skipped.
-    # flag/lmc arrive as WHOLE (G, 1) SMEM arrays (Mosaic's last-two-dims
-    # rule forbids (1, 1) blocks), indexed by this program's family id.
+    Two sweeps over the train tiles: the first keeps elementwise tile
+    maxima, reduced to row maxima once at the end; the second accumulates
+    ``exp2(logit − row max)`` elementwise, again reduced once. Neither sweep
+    reduces across threads per tile, which a one-sweep online (max, sum)
+    has to; on an H100 the two sweeps ran 2.1× faster than one."""
+    n_blocks = tr_ref.shape[1] // block_n
+    te = [te_ref[c, :] for c in range(dpad)]      # dpad × (block_m,)
+    zte = zvte_ref[:]                             # (block_m,)
+    block_m = zte.shape[0]
     g = pl.program_id(0)
-    no_ev = flag_ref[g, 0] > 0.5
+    # evidence-free family: the marginal logsumexp is the constant
+    # log n_eff, so the whole marginal pass is skipped
+    no_ev = flag_ref[g] > 0.5
 
-    def body(nb, carry):
-        mj, sj, mm, sm = carry
-        tb = jtr_ref[0, :, pl.ds(nb * block_n, block_n)]    # (dpad+2, block_n)
-        ng = neg_ref[0, 0, pl.ds(nb * block_n, block_n)]    # (block_n,)
-        d2 = jax.lax.dot_general(
-            test_aug, tb, (((1,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=jnp.float32,
-        )
-        lj = -0.5 * d2 + ng[None, :]
+    def logits(nb, marginal):
+        sl = pl.ds(nb * block_n, block_n)
+        d2 = jnp.zeros((block_m, block_n), jnp.float32)
+        for c in range(dpad):
+            diff = te[c][:, None] - tr_ref[c, sl][None, :]
+            d2 = d2 + diff * diff
+        lj = neg_ref[sl][None, :] - d2
+        if not marginal:
+            return (lj,)
+        vd = zte[:, None] - zvtr_ref[sl][None, :]
+        return lj, lj + vd * vd
 
-        bmj = jnp.max(lj, axis=1, keepdims=True)
-        new_mj = jnp.maximum(mj, bmj)
-        sj = sj * jnp.exp(mj - new_mj) + jnp.sum(
-            jnp.exp(lj - new_mj), axis=1, keepdims=True
-        )
+    def lse(marginal):
+        k = 2 if marginal else 1
+        tile0 = jnp.full((block_m, block_n), _NEG_INIT, jnp.float32)
+        zero = jnp.zeros((block_m, block_n), jnp.float32)
 
-        def marg(carry_m):
-            mm_, sm_ = carry_m
-            ztb = zvtr_ref[0, 0, pl.ds(nb * block_n, block_n)]
-            vd = zte[:, None] - ztb[None, :]
-            lm = lj + 0.5 * vd * vd
-            bmm = jnp.max(lm, axis=1, keepdims=True)
-            new_mm = jnp.maximum(mm_, bmm)
-            sm_ = sm_ * jnp.exp(mm_ - new_mm) + jnp.sum(
-                jnp.exp(lm - new_mm), axis=1, keepdims=True
-            )
-            return new_mm, sm_
+        def maxes(nb, ms):
+            return tuple(jnp.maximum(m, l)
+                         for m, l in zip(ms, logits(nb, marginal)))
 
-        mm, sm = jax.lax.cond(no_ev, lambda c: c, marg, (mm, sm))
-        return new_mj, sj, mm, sm
+        ms = jax.lax.fori_loop(0, n_blocks, maxes, (tile0,) * k)
+        ms = tuple(jnp.max(m, axis=1) for m in ms)
 
-    # finite very-negative init: keeps all-padding blocks NaN-free
-    m0 = jnp.full((block_m, 1), -1e30, jnp.float32)
-    s0 = jnp.zeros((block_m, 1), jnp.float32)
-    mj, sj, mm, sm = jax.lax.fori_loop(0, n_blocks, body, (m0, s0, m0, s0))
-    lse_m = jnp.where(no_ev, lmc_ref[g, 0], mm + jnp.log(sm))
-    out_ref[0] = (mj + jnp.log(sj)) - lse_m
+        def sums(nb, ss):
+            return tuple(s + jnp.exp2(l - m[:, None]) for s, l, m in
+                         zip(ss, logits(nb, marginal), ms))
+
+        ss = jax.lax.fori_loop(0, n_blocks, sums, (zero,) * k)
+        return [m + jnp.log2(jnp.sum(s, axis=1)) for m, s in zip(ms, ss)]
+
+    def with_marginal():
+        lj, lm = lse(True)
+        return lj - lm
+
+    def without_marginal():
+        (lj,) = lse(False)
+        return lj - lmc_ref[g]
+
+    out_ref[:] = math.log(2.0) * jax.lax.cond(no_ev, without_marginal,
+                                              with_marginal)
 
 
-@partial(jax.jit, static_argnames=("block_m", "block_n", "interpret"))
-def pallas_ckde_cv_pairs(jtr, neg, zv_tr, jte, zv_te, no_ev=None,
-                         lm_const=None, block_m: int = 256,
-                         block_n: int = 1024, interpret: bool = False):
+@partial(jax.jit, static_argnames=("block_m", "block_n", "num_warps",
+                                   "interpret"))
+def pallas_ckde_cv_pairs(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const,
+                         block_m: int = 32, block_n: int = 128,
+                         num_warps: int = 4, interpret: bool = False):
     """(G, nte) per-test-point ``logsumexp_joint − logsumexp_marg`` (without
-    lognorm constants) for G = F·K (family, fold) pairs. jtr: (G, ntr, dpad)
-    whitened train with ntr a multiple of ``block_n``; neg/zv_tr: (G, ntr);
-    jte: (G, nte, dpad) with nte a multiple of ``block_m``; zv_te: (G, nte).
-    ``no_ev``: optional (G,) flag marking evidence-free (1-D) families whose
-    marginal logsumexp is the constant ``lm_const[g]`` (= log n_eff) — the
-    kernel skips the whole marginal pass for those programs.
-    All float32. Train-side arrays are fed transposed (ntr in lanes) and
-    both sides augmented for the single-matmul distance; test vectors travel
-    as (G, nte, 1) — every block then satisfies the Mosaic last-two-dims
-    tiling rule without 128-lane padding waste."""
+    lognorm constants) for G = F·K (family, fold) pairs, all float32.
+
+    jtr: (G, ntr, dpad) whitened train with ntr a multiple of ``block_n``;
+    neg: (G, ntr) 0 for valid train rows, −inf for padding; zv_tr: (G, ntr)
+    whitened variable coordinate; jte: (G, nte, dpad) with nte a multiple
+    of ``block_m``; zv_te: (G, nte). ``no_ev`` (G,) flags evidence-free
+    families, whose marginal logsumexp is the constant ``lm_const[g]``
+    (= log n_eff). ``dpad``, ``block_m`` and ``block_n`` are powers of two;
+    the defaults were the fastest of a sweep on an H100 (PERF.md)."""
     G, ntr, dpad = jtr.shape
     nte = jte.shape[1]
-    grid = (G, nte // block_m)
-    if no_ev is None:
-        no_ev = jnp.zeros((G,), jnp.float32)
-    if lm_const is None:
-        lm_const = jnp.zeros((G,), jnp.float32)
-    # augmented operands: d2 = [-2·te, ‖te‖², 1] @ [tr; 1; ‖tr‖²]
-    jn_tr = jnp.sum(jnp.square(jtr), axis=2)              # (G, ntr)
-    taug = jnp.concatenate(
-        [
-            jnp.swapaxes(jtr, 1, 2),
-            jnp.ones((G, 1, ntr), jnp.float32),
-            jn_tr[:, None, :],
-        ],
-        axis=1,
-    )                                                      # (G, dpad+2, ntr)
-    jn_te = jnp.sum(jnp.square(jte), axis=2)               # (G, nte)
-    teaug = jnp.concatenate(
-        [-2.0 * jte, jn_te[..., None], jnp.ones((G, nte, 1), jnp.float32)],
-        axis=2,
-    )                                                      # (G, nte, dpad+2)
-    daug = dpad + 2
-    out = pl.pallas_call(
-        partial(_ckde_cv_kernel, block_n=block_n, dpad=dpad),
-        grid=grid,
+    kernel = partial(_ckde_cv_kernel, block_n=block_n, dpad=dpad)
+    return pl.pallas_call(
+        kernel,
+        grid=(G, nte // block_m),
         in_specs=[
-            pl.BlockSpec((G, 1), lambda i, j: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((G, 1), lambda i, j: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, daug, ntr), lambda i, j: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, ntr), lambda i, j: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, ntr), lambda i, j: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_m, daug), lambda i, j: (i, j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_m, 1), lambda i, j: (i, j, 0),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((G,), lambda g, i: (0,)),
+            pl.BlockSpec((G,), lambda g, i: (0,)),
+            pl.BlockSpec((None, dpad, ntr), lambda g, i: (g, 0, 0)),
+            pl.BlockSpec((None, ntr), lambda g, i: (g, 0)),
+            pl.BlockSpec((None, ntr), lambda g, i: (g, 0)),
+            pl.BlockSpec((None, dpad, block_m), lambda g, i: (g, 0, i)),
+            pl.BlockSpec((None, block_m), lambda g, i: (g, i)),
         ],
-        out_specs=pl.BlockSpec((1, block_m, 1), lambda i, j: (i, j, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((G, nte, 1), jnp.float32),
+        out_specs=pl.BlockSpec((None, block_m), lambda g, i: (g, i)),
+        out_shape=jax.ShapeDtypeStruct((G, nte), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=2),
         interpret=interpret,
+        name="ckde_cv_pairs",
     )(
-        no_ev.reshape(G, 1).astype(jnp.float32),
-        lm_const.reshape(G, 1).astype(jnp.float32),
-        taug,
-        neg[:, None, :],
-        zv_tr[:, None, :],
-        teaug,
-        zv_te[..., None],
+        no_ev.astype(jnp.float32),
+        lm_const.astype(jnp.float32) / math.log(2.0),
+        jnp.swapaxes(jtr, 1, 2) * _SCALE,
+        neg,
+        zv_tr * _SCALE,
+        jnp.swapaxes(jte, 1, 2) * _SCALE,
+        zv_te * _SCALE,
     )
-    return out[..., 0]
-
-
-@partial(jax.jit, static_argnames=("block_m", "block_n", "interpret"))
-def pallas_kde_logl(train_white, train_valid, test_white, lognorm,
-                    block_m: int = 256, block_n: int = 2048,
-                    interpret: bool = False):
-    """(M,) KDE log-likelihood. train_white: (N, d) f32 with N a multiple of
-    ``block_n`` (pad rows, 0 in train_valid); test_white: (M, d) with M a
-    multiple of ``block_m``; lognorm: (1,) f32."""
-    M, d = test_white.shape
-    N = train_white.shape[0]
-    grid = (M // block_m,)
-    out = pl.pallas_call(
-        partial(_kde_kernel, block_n=block_n),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((N, d), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((N, 1), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_m, d), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ],
-        out_specs=pl.BlockSpec((block_m, 1), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((M, 1), jnp.float32),
-        interpret=interpret,
-    )(
-        train_white,
-        train_valid.reshape(-1, 1),
-        test_white,
-        lognorm.reshape(1, 1),
-    )
-    return out[:, 0]

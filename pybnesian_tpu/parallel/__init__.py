@@ -2,11 +2,10 @@
 kernels.
 
 The reference has no distributed backend at all (SURVEY.md §2.13 — one OpenCL
-device, one in-order queue). This module is the net-new TPU-native
-replacement: a (data, fam) mesh shards data rows and candidate families;
-XLA collectives (psum) combine per-shard sufficient statistics over ICI.
-Works identically on a single chip, a v5e/v5p slice, or a multi-host pod
-(jax.distributed + the same Mesh).
+device, one in-order queue). This module is net-new: a (data, fam) mesh
+shards data rows and candidate families; XLA collectives (psum) combine
+per-shard sufficient statistics. Works identically on one device, several
+devices of one host, or several hosts (jax.distributed + the same Mesh).
 """
 
 from __future__ import annotations
@@ -71,6 +70,7 @@ def _local_family_gram(values, valid, vi, pi, pm):
     design = jnp.concatenate([ones, X, y[:, None]], axis=1)
     gram = jnp.einsum(
         "ni,nj->ij", design * w[:, None], design,
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=design.dtype,
     )
     return gram, jnp.sum(w)
@@ -79,7 +79,7 @@ def _local_family_gram(values, valid, vi, pi, pm):
 def sharded_batched_bic(mesh: Mesh, values, valid, var_idx, parent_idx,
                         parent_mask):
     """BIC local scores with rows sharded over the 'data' axis and families
-    over 'fam': per-shard Grams are psum-reduced over ICI, the tiny solves
+    over 'fam': per-shard Grams are psum-reduced, the tiny solves
     replicate per family shard. Row counts must divide the data axis; family
     count must divide the fam axis (pad upstream)."""
 
@@ -97,7 +97,7 @@ def sharded_batched_bic(mesh: Mesh, values, valid, var_idx, parent_idx,
     )
     def kernel(v, m, vi, pi, pm):
         # all families' shard-local Grams first, then ONE fused psum for
-        # the whole batch — a single ICI collective per score call
+        # the whole batch — a single collective per score call
         grams, ws = jax.vmap(
             lambda vi_, pi_, pm_: _local_family_gram(v, m, vi_, pi_, pm_)
         )(vi, pi, pm)
@@ -190,18 +190,20 @@ def sharded_ckde_cv(mesh: Mesh, data, null_mask, col_idx, col_mask, tr_idx,
     )
 
 
-def sharded_kde_slogl(mesh: Mesh, train_white, test_white, lognorm):
+def sharded_kde_slogl(mesh: Mesh, train_white, test_white, lognorm,
+                      one_collective: bool | None = None):
     """KDE sum-log-likelihood with training points sharded over 'data': a
     numerically stable distributed logsumexp over the training axis.
 
-    Two formulations, chosen by backend: on accelerators each shard shifts
-    by its LOCAL max and ONE all_gather moves the (max, shifted sum) pairs
-    — a single collective latency on ICI, with a tiny (2·shards·m)
-    payload. On CPU meshes (tests, virtual-device scaling runs) the
-    collectives are memcpys with no latency to save, and the replicated
-    combine is pure overhead — the classic pmax+psum form measures ~3%
-    better there (benchmarks/config6, solo medians)."""
-    one_collective = mesh.devices.flat[0].platform != "cpu"
+    Two formulations. ``one_collective=True``: each shard shifts by its
+    LOCAL max and ONE all_gather moves the (max, shifted sum) pairs — one
+    collective latency, with a tiny (2·shards·m) payload. ``False``: the
+    classic pmax then psum, two collectives. ``None`` picks all_gather off
+    the CPU and pmax+psum on CPU meshes, where collectives are memcpys with
+    no latency to save. Which form is faster across GPUs has not been
+    measured."""
+    if one_collective is None:
+        one_collective = mesh.devices.flat[0].platform != "cpu"
 
     def kernel(tr, te, ln):
         tn = jnp.sum(jnp.square(tr), axis=1)

@@ -2,14 +2,13 @@
 
 The reference's only checkpointing is pickling the model each hill-climbing
 iteration (learning/algorithms/callbacks/save_model.hpp:8-30) with no resume
-logic — SURVEY.md §5.4. This module adds the TPU-native story:
+logic — SURVEY.md §5.4. This module adds device-state checkpoints:
 
 - ``save_pytree`` / ``load_pytree``: device-state checkpoints (orbax) for any
   JAX pytree — posterior-inference states, sharded arrays.
 - ``nuts_checkpointed``: long NUTS runs that persist (position, rng, adapted
-  step/mass, collected blocks) after every block and resume mid-run after a
-  preemption — the standard TPU preemption-tolerance pattern the reference
-  cannot express.
+  step/mass, collected blocks) after every block and resume mid-run after
+  the job is preempted or killed, which the reference cannot express.
 - Structure-search resume needs no new machinery: ``SaveModel`` writes the
   model per iteration and ``hc(start=load(...))`` continues from it
   (validated in tests/learning/test_checkpoint.py).

@@ -13,17 +13,25 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 
 import numpy as np
 
 __all__ = [
     "RuntimeConfig",
+    "compile_cache_dir",
     "device_info",
     "default_mesh",
     "dtype_policy",
+    "enable_compile_cache",
     "set_dtype_policy",
     "trace",
 ]
+
+#: the checkout (or install prefix) that holds the package directory
+_CHECKOUT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
 
 
 @dataclasses.dataclass
@@ -37,8 +45,9 @@ _CONFIG = RuntimeConfig()
 
 
 def dtype_policy() -> np.dtype:
-    """Default device compute dtype. float32 on TPU; tests enable x64 and the
-    kernels follow the data dtype, so this is the fallback only."""
+    """Default device compute dtype. float32 on accelerators; tests enable
+    x64 and the kernels follow the data dtype, so this is the fallback
+    only."""
     return _CONFIG.compute_dtype
 
 
@@ -82,3 +91,28 @@ def trace(name: str, log_dir: str | None = None):
     else:
         with jax.profiler.TraceAnnotation(name):
             yield
+
+
+def compile_cache_dir() -> str:
+    """Where JAX's persistent compilation cache lives:
+    ``$JAX_COMPILATION_CACHE_DIR`` when set, else ``<checkout>/.jax_cache``.
+    The path is part of the cache key, so it is fixed, never derived from a
+    temporary name, a PID or the time."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        _CHECKOUT, ".jax_cache"
+    )
+
+
+def enable_compile_cache() -> str:
+    """Turn on the persistent compilation cache, the one place that names
+    its directory. When ``JAX_COMPILATION_CACHE_DIR`` is set JAX reads it
+    itself and nothing is set here; otherwise the cache goes to
+    ``<checkout>/.jax_cache``. Returns the directory in use."""
+    path = compile_cache_dir()
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        import jax
+
+        jax.config.update("jax_compilation_cache_dir", path)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    return path

@@ -1,17 +1,16 @@
 """Multi-host bootstrap: ``jax.distributed.initialize`` wiring so the same
-SPMD code (parallel/*, inference/hmc.py) runs a multi-host TPU slice
-untouched.
+SPMD code (parallel/*, inference/hmc.py) runs on several hosts untouched.
 
 The reference has no distributed story at all (SURVEY.md §2.13); this module
 is net-new. Contract mirrors the standard JAX multi-process model:
 
-- one Python process per host, each seeing its local chips;
+- one Python process per host, each seeing its local devices;
 - ``initialize()`` wires the cluster from explicit arguments or the
   ``PBN_COORDINATOR`` / ``PBN_NUM_PROCESSES`` / ``PBN_PROCESS_ID`` env vars
-  (falling back to JAX's own auto-detection on TPU pods / SLURM);
+  (falling back to JAX's own cluster auto-detection, e.g. SLURM);
 - ``global_mesh()`` then builds a Mesh over ALL global devices — pass it to
   ``parallel.sharded_*`` / ``inference.sample_chains_sharded`` and XLA routes
-  collectives over ICI within a host and DCN across hosts.
+  collectives over the host's device links and the network across hosts.
 
 Single-process use is a no-op: ``initialize()`` returns False and
 ``global_mesh()`` degrades to the local-device mesh.
@@ -39,7 +38,7 @@ def initialize(coordinator_address: str | None = None,
     """Bootstrap the multi-process JAX runtime.
 
     Resolution order per argument: explicit argument > ``PBN_*`` env var >
-    JAX auto-detection (TPU pod metadata / SLURM). Returns True when a
+    JAX cluster auto-detection (e.g. SLURM). Returns True when a
     multi-process runtime was initialized, False for the single-process
     no-op (num_processes == 1 with no coordinator)."""
     global _INITIALIZED
@@ -92,8 +91,8 @@ def is_distributed() -> bool:
 def global_mesh(fam: int = 1):
     """(data, fam) mesh over ALL global devices (every process must call this
     with the same arguments). Data-parallel axis spans hosts — lay the
-    heavier 'data' collectives along it so psum rides ICI within a host
-    before crossing DCN; the 'fam' axis (embarrassingly parallel candidate
+    heavier 'data' collectives along it so psum rides the device links within
+    a host before crossing the network; the 'fam' axis (embarrassingly parallel candidate
     families) carries no collectives at all."""
     from ..parallel import make_mesh
     import jax

@@ -1,8 +1,10 @@
-"""Interpret-mode parity of the flash CV-CKDE path vs the XLA fused kernel.
+"""The streaming CV-CKDE path vs the XLA fused kernel, and the choice
+between them.
 
 The flash path (ops/kde.py ckde_cv_alldevice_flash) splits the fused kernel
-into an XLA whitening stage and a Pallas streaming double-logsumexp; both
-must agree with ckde_cv_alldevice exactly (same fold/bandwidth math).
+into an XLA whitening stage and a Pallas double-logsumexp on the Triton
+route; both must agree with ckde_cv_alldevice (same fold/bandwidth math).
+Here the kernel runs in interpret mode; the ``gpu`` test compiles it.
 """
 
 import numpy as np
@@ -72,24 +74,90 @@ def test_flash_wider_family(seed=1):
     np.testing.assert_allclose(out, ref, rtol=5e-4, atol=5e-3)
 
 
-def test_flash_selfcheck_interpret():
-    """The one-time parity gate used by the scoring path and bench.py
-    (flash_cv_selfcheck) passes in interpret mode on CPU."""
-    from pybnesian_tpu.ops.kde import flash_cv_selfcheck
+def test_flash_fallback_state_gates_by_backend():
+    """The scoring path picks its kernel with cv_pairs_route from the
+    platform and the dtype; on the CPU that is the XLA kernel, whose result
+    _fused_cv_scores returns unchanged."""
+    import jax
 
-    ok, diff = flash_cv_selfcheck(interpret=True)
-    assert ok, f"selfcheck diff {diff}"
-    assert diff < 5e-2
-
-
-def test_flash_fallback_state_gates_by_backend(monkeypatch):
-    """On a non-TPU backend the scoring path never consults the flash gate
-    (uses the XLA kernel) and the verified-state flag stays untouched."""
     import pybnesian_tpu.learning.scores.likelihood as lik
+    from pybnesian_tpu.ops.kde import cv_pairs_route
 
-    monkeypatch.setattr(lik, "_FLASH_CV_STATE", None)
     args = _setup()
+    assert cv_pairs_route(jax.default_backend(), args[0].dtype) == "xla"
     out = np.asarray(lik._fused_cv_scores(*args, chunk=256, rule="nr"))
     ref = np.asarray(ckde_cv_alldevice(*args, chunk=256, rule="nr"))
-    np.testing.assert_allclose(out, ref, rtol=1e-6)
-    assert lik._FLASH_CV_STATE is None  # gate not consulted off-TPU
+    np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize(
+    "platform, dtype, route",
+    [
+        ("gpu", np.float32, "triton"),
+        ("gpu", np.float64, "xla"),
+        ("gpu", np.float16, "xla"),
+        ("cpu", np.float32, "xla"),
+        ("cpu", np.float64, "xla"),
+    ],
+)
+def test_cv_pairs_route(platform, dtype, route):
+    from pybnesian_tpu.ops.kde import cv_pairs_route
+
+    assert cv_pairs_route(platform, dtype) == route
+
+
+def test_fused_scores_follow_the_route(monkeypatch):
+    """When the route says "triton", _fused_cv_scores runs the streaming
+    kernel (here in interpret mode) and returns its result."""
+    import pybnesian_tpu.ops.kde as kde_ops
+    import pybnesian_tpu.learning.scores.likelihood as lik
+
+    calls = []
+
+    def flash(*a, **kw):
+        calls.append(kw)
+        return ckde_cv_alldevice_flash(*a, rule=kw["rule"], interpret=True)
+
+    monkeypatch.setattr(kde_ops, "cv_pairs_route", lambda p, d: "triton")
+    monkeypatch.setattr(kde_ops, "ckde_cv_alldevice_flash", flash)
+    args = _setup(F=2, n=300)
+    out = np.asarray(lik._fused_cv_scores(*args, chunk=256, rule="nr"))
+    ref = np.asarray(ckde_cv_alldevice(*args, chunk=256, rule="nr"))
+    assert len(calls) == 1
+    np.testing.assert_allclose(out, ref, rtol=5e-4, atol=5e-3)
+
+
+@pytest.mark.parametrize("block_m, block_n", [(32, 64), (64, 128)])
+def test_flash_pads_rows_and_columns(block_m, block_n):
+    """Train rows, test rows and the column count that are not multiples of
+    the blocks (or a power of two) are padded by the wrapper; padded rows
+    carry no weight."""
+    rng = np.random.default_rng(3)
+    n, D, K = 300, 3, 2
+    data = jnp.asarray(rng.normal(size=(n, D)).astype(np.float32))
+    null = jnp.zeros((n, D), jnp.float32)
+    col_idx = jnp.asarray([[1, 2, 0], [0, 0, 0]], jnp.int32)
+    col_mask = jnp.asarray([[1, 1, 1], [1, 0, 0]], jnp.float32)
+    ntr, nte = 200, 100
+    tr_idx = jnp.asarray(np.stack([np.arange(ntr), np.arange(n - ntr, n)])
+                         .astype(np.int32))
+    tr_mask = jnp.asarray(np.stack([np.ones(ntr), np.r_[np.ones(170),
+                                                        np.zeros(30)]])
+                          .astype(np.float32))
+    te_idx = jnp.asarray(np.stack([np.arange(n - nte, n), np.arange(nte)])
+                         .astype(np.int32))
+    te_mask = jnp.ones((K, nte), jnp.float32)
+    args = (data, null, col_idx, col_mask, tr_idx, tr_mask, te_idx, te_mask)
+    ref = np.asarray(ckde_cv_alldevice(*args, chunk=100))
+    out = np.asarray(ckde_cv_alldevice_flash(
+        *args, block_m=block_m, block_n=block_n, interpret=True))
+    np.testing.assert_allclose(out, ref, rtol=5e-5)
+
+
+def test_flash_kernel_compiled_on_gpu(gpu):
+    """The kernel as the GPU compiles it (not interpreted) against the XLA
+    kernel."""
+    args = _setup(F=4, n=2048, D=4, K=3, djmax=4)
+    ref = np.asarray(ckde_cv_alldevice(*args, chunk=256))
+    out = np.asarray(ckde_cv_alldevice_flash(*args))
+    np.testing.assert_allclose(out, ref, rtol=1e-4)
