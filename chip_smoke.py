@@ -28,6 +28,7 @@ phase fails. Everything runs in this one process.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -68,8 +69,9 @@ def bench_families(d, shift=1):
     return fams
 
 
-def linear_frame(n, d, seed=0, dtype=np.float32):
-    """Linear-Gaussian chain: x_i = 0.8·x_{i−1} − 0.5·x_{i−2} + noise."""
+def linear_frame(n, d, seed=0, dtype=np.float32, loc=0.0):
+    """Linear-Gaussian chain: x_i = 0.8·x_{i−1} − 0.5·x_{i−2} + noise,
+    then column i moved to mean ``loc``·(i mod 4)."""
     rng = np.random.default_rng(seed)
     cols = {}
     for i in range(d):
@@ -79,7 +81,8 @@ def linear_frame(n, d, seed=0, dtype=np.float32):
         if i >= 2:
             x -= 0.5 * cols[f"x{i-2}"]
         cols[f"x{i}"] = x
-    return {k: v.astype(dtype) for k, v in cols.items()}
+    return {k: (v + loc * (i % 4)).astype(dtype)
+            for i, (k, v) in enumerate(cols.items())}
 
 
 def config3_kernel_args(score, fams):
@@ -177,6 +180,38 @@ def bic_oracle(y, X):
     var = rss / (n - k - 1)
     loglik = 0.5 * (1 + k - n) - 0.5 * n * LOG_2PI - 0.5 * n * math.log(var)
     return loglik - 0.5 * math.log(n) * (k + 2)
+
+
+def lg_batch_oracle(values, var_idx, parent_idx, parent_mask):
+    """Float64 least squares of every family of a padded LG batch: betas
+    (F, P+1) with 0 for masked parents, variances (F,) and BIC (F,)."""
+    values = np.asarray(values, np.float64)
+    F, P = parent_idx.shape
+    betas = np.zeros((F, P + 1))
+    variances = np.zeros(F)
+    bics = np.zeros(F)
+    for f in range(F):
+        on = np.flatnonzero(parent_mask[f])
+        y, X = values[:, var_idx[f]], values[:, parent_idx[f, on]]
+        beta, rss = _ols(y, X)
+        betas[f, 0] = beta[0]
+        betas[f, 1 + on] = beta[1:]
+        variances[f] = rss / (len(y) - len(on) - 1)
+        bics[f] = bic_oracle(y, X)
+    return betas, variances, bics
+
+
+#: The bound on a float32 variance's error relative to float64 least
+#: squares. It moves a BIC score by 0.5·n·VAR_RTOL units: 1 unit at 10^6
+#: rows, a seventh of the penalty 0.5·ln(10^6) ≈ 6.9 that one parameter
+#: costs there, so a score error cannot flip a comparison that one
+#: parameter decides.
+VAR_RTOL = 2e-6
+
+
+def bic_atol(n):
+    """:data:`VAR_RTOL` in BIC units at ``n`` rows."""
+    return 0.5 * n * VAR_RTOL
 
 
 def _diffs(got, want):
@@ -307,13 +342,35 @@ def phase_hc_spbn(n=10_000, d=8, k=10, max_iters=3, seed=0, keep=None):
     return work, check
 
 
+@contextlib.contextmanager
+def gram_precision(precision):
+    """Run the Gaussian kernels (ops/gaussian.py) at another matmul
+    precision than HIGHEST: the control that shows what the check of
+    phase ``hc_bic`` would read if the Grams ran at DEFAULT (TF32 on a
+    GPU)."""
+    import jax
+
+    from pybnesian_tpu.ops import gaussian
+
+    saved = gaussian.HIGHEST
+    gaussian.HIGHEST = precision
+    jax.clear_caches()
+    try:
+        yield
+    finally:
+        gaussian.HIGHEST = saved
+        jax.clear_caches()
+
+
 def phase_hc_bic(n=100_000, d=20, max_iters=10, seed=0):
+    import jax
+    import jax.numpy as jnp
+
     from pybnesian_tpu import BIC, GaussianNetworkType, hc
     from pybnesian_tpu.learning.scores import bic as bic_mod
 
-    frame = linear_frame(n, d, seed)
+    frame = linear_frame(n, d, seed, loc=3.0)
     calls = {"device": 0}
-    state = {}
     inner = bic_mod._padded_batched_bic
 
     def counted(*a, **kw):
@@ -323,12 +380,10 @@ def phase_hc_bic(n=100_000, d=20, max_iters=10, seed=0):
     def work():
         bic_mod._padded_batched_bic = counted
         try:
-            score = BIC(frame)
-            model = hc(frame, bn_type=GaussianNetworkType(), score=score,
+            model = hc(frame, bn_type=GaussianNetworkType(), score=BIC(frame),
                        max_iters=max_iters, seed=seed)
         finally:
             bic_mod._padded_batched_bic = inner
-        state.update(score=score)
         return model
 
     def check(model):
@@ -340,19 +395,27 @@ def phase_hc_bic(n=100_000, d=20, max_iters=10, seed=0):
         fams = [(v, model.parents(v)) for v in names[:8]]
         fams += [(names[i], [names[i - 1], names[i - 2]])
                  for i in range(2, 10)]
-        got = state["score"].local_score_batch(model, fams)
+        pos = {c: i for i, c in enumerate(names)}
+        idx = [(pos[v], [pos[p] for p in ps]) for v, ps in fams]
+        values = jnp.asarray(np.column_stack([frame[c] for c in names]))
+        valid = jnp.ones_like(values)
         want = [bic_oracle(_matrix(frame, [v])[:, 0],
                            _matrix(frame, ps) if ps else np.zeros((n, 0)))
                 for v, ps in fams]
+        got = inner(values, valid, idx)
         max_abs, max_rel = _diffs(got, want)
-        rtol = 2e-4
-        _check("BIC vs float64 least squares", max_abs, max_rel, rtol=rtol)
+        with gram_precision(jax.lax.Precision.DEFAULT):
+            ctl_abs, ctl_rel = _diffs(inner(values, valid, idx), want)
+        atol = bic_atol(n)
+        _check("BIC vs float64 least squares", max_abs, max_rel, atol=atol)
         return {
             "max_abs_diff": max_abs, "max_rel_diff": max_rel,
-            "tolerance": {"rtol": rtol, "reason": (
-                "float32 accumulation over 1e5 rows (~2e-5 relative in the "
-                "uncentred Gram), amplified by the rss = yy - b.beta "
-                "cancellation")},
+            "tolerance": {"atol": atol, "reason": (
+                "BIC units: a variance error of 2e-6 relative; data with "
+                "column means 0-9")},
+            "control_default_precision": {
+                "max_abs_diff": ctl_abs, "max_rel_diff": ctl_rel,
+                "within_bound": ctl_abs <= atol},
             "device_bic_calls": calls["device"], "arcs": model.num_arcs(),
         }
 
@@ -626,6 +689,9 @@ def phase_mesh(mesh, n_ckde=10_000, n_rows=1_000_000, d=20, n_train=65_536,
     )
     from pybnesian_tpu.ops.kde import ckde_cv_alldevice
     from pybnesian_tpu.parallel import (
+        _lse_all_gather,
+        _lse_pmax_psum,
+        _sharded_kde_slogl,
         sharded_batched_bic,
         sharded_ckde_cv,
         sharded_kde_slogl,
@@ -647,10 +713,11 @@ def phase_mesh(mesh, n_ckde=10_000, n_rows=1_000_000, d=20, n_train=65_536,
         _close(1e-5, "same float32 kernel per family on one card"),
     )
 
-    # LG fit and BIC, rows sharded over 'data', families over 'fam'
-    values = rng.normal(size=(n_rows, d)).astype(np.float32)
-    for j in range(1, d):
-        values[:, j] += 0.7 * values[:, j - 1]
+    # LG fit and BIC, rows sharded over 'data', families over 'fam', at
+    # 10^6 rows with column means 0-9; one card and the mesh each against
+    # float64 least squares
+    lg_frame = linear_frame(n_rows, d, seed, loc=3.0)
+    values = np.column_stack(list(lg_frame.values()))
     valid = np.ones((n_rows, d), np.float32)
     F, P = 32, 3
     var_idx = (np.arange(F) % d).astype(np.int32)
@@ -661,6 +728,13 @@ def phase_mesh(mesh, n_ckde=10_000, n_rows=1_000_000, d=20, n_train=65_536,
     lg = tuple(jnp.asarray(a) for a in
                (values, valid, var_idx, parent_idx, parent_mask))
     lg1 = jax.device_put(lg, one)
+    oracle = {}
+
+    def want():
+        if not oracle:
+            oracle["v"] = lg_batch_oracle(values, var_idx, parent_idx,
+                                          parent_mask)
+        return oracle["v"]
 
     def fit_one():
         grams, n_eff = family_grams(*lg1)
@@ -674,16 +748,12 @@ def phase_mesh(mesh, n_ckde=10_000, n_rows=1_000_000, d=20, n_train=65_536,
         lambda: np.concatenate(
             [np.asarray(a).reshape(F, -1) for a in lg_fit(*lg)], axis=1),
         fit_one,
-        _close(2e-3, "float32 accumulation over 1e6 uncentred rows "
-               "(~1e-4 relative in each Gram, either order), amplified by "
-               "the rss cancellation and the solve", atol=2e-3),
+        _lg_fit_close(want, beta_atol=1e-5, var_rtol=VAR_RTOL),
     )
     out["sharded_batched_bic"] = (
         lambda: np.asarray(bic(*lg)),
         lambda: np.asarray(batched_bic(*lg1)),
-        _close(1e-3, "float32 accumulation over 1e6 uncentred rows "
-               "(~1e-4 relative in each Gram, either order), amplified by "
-               "the rss cancellation"),
+        _bic_close(lambda: want()[2], bic_atol(n_rows)),
     )
 
     # KDE slogl with train rows sharded over 'data', both collective forms
@@ -692,11 +762,9 @@ def phase_mesh(mesh, n_ckde=10_000, n_rows=1_000_000, d=20, n_train=65_536,
     ln = jnp.float32(-math.log(n_train) - LOG_2PI)
     mesh1 = type(mesh)(np.asarray([[one]]), mesh.axis_names)
     ref_kde = lambda: np.asarray(sharded_kde_slogl(mesh1, tw, sw, ln))  # noqa: E731
-    for form in (True, False):
-        name = "sharded_kde_slogl_" + ("all_gather" if form else "pmax_psum")
-        out[name] = (
-            lambda f=jax.jit(partial(sharded_kde_slogl, mesh,
-                                     one_collective=form)):
+    for lse in (_lse_all_gather, _lse_pmax_psum):
+        out["sharded_kde_slogl" + lse.__name__[4:]] = (
+            lambda f=jax.jit(partial(_sharded_kde_slogl, mesh, lse=lse)):
                 np.asarray(f(tw, sw, ln)),
             ref_kde,
             _close(1e-5, "shifted exp-sums combined across cards vs one "
@@ -739,6 +807,54 @@ def _close(rtol, reason, atol=0.0):
                 f"diff {max_rel:.3e} outside rtol={rtol} atol={atol}")
         return {"max_abs_diff": max_abs, "max_rel_diff": max_rel,
                 "tolerance": {"rtol": rtol, "atol": atol, "reason": reason}}
+    return compare
+
+
+def _lg_fit_close(oracle, beta_atol, var_rtol):
+    """Betas within ``beta_atol`` and variances within ``var_rtol`` of the
+    float64 oracle, for the mesh and for one card; the mesh against one
+    card is reported."""
+    def compare(got, single):
+        betas, variances, _ = oracle()
+        out = {}
+        for label, arr in (("sharded", got), ("one_card", single)):
+            b_abs, _ = _diffs(arr[:, :-1], betas)
+            v_abs, v_rel = _diffs(arr[:, -1], variances)
+            _check(f"{label} LG betas vs float64", b_abs, 0.0, atol=beta_atol)
+            _check(f"{label} LG variances vs float64", v_abs, v_rel,
+                   rtol=var_rtol)
+            out[label] = {"beta_max_abs_diff": b_abs,
+                          "variance_max_rel_diff": v_rel}
+        b_abs, _ = _diffs(got[:, :-1], single[:, :-1])
+        _, v_rel = _diffs(got[:, -1], single[:, -1])
+        out["sharded_vs_one_card"] = {"beta_max_abs_diff": b_abs,
+                                      "variance_max_rel_diff": v_rel}
+        out["tolerance"] = {"beta_atol": beta_atol, "variance_rtol": var_rtol,
+                            "reason": (
+            "against float64 least squares; betas: 1% of their sampling sd "
+            "at 1e6 rows; variances: 2e-6 relative moves a BIC score by 1 "
+            "unit at 1e6 rows")}
+        return out
+    return compare
+
+
+def _bic_close(oracle, atol):
+    """BIC scores within ``atol`` BIC units of the float64 oracle, for the
+    mesh and for one card; the mesh against one card is reported."""
+    def compare(got, single):
+        want = oracle()
+        out = {}
+        for label, arr in (("sharded", got), ("one_card", single)):
+            max_abs, max_rel = _diffs(arr, want)
+            _check(f"{label} BIC vs float64", max_abs, max_rel, atol=atol)
+            out[label] = {"max_abs_diff": max_abs, "max_rel_diff": max_rel}
+        max_abs, max_rel = _diffs(got, single)
+        out["sharded_vs_one_card"] = {"max_abs_diff": max_abs,
+                                      "max_rel_diff": max_rel}
+        out["tolerance"] = {"atol": atol, "reason": (
+            "BIC units against float64 least squares: a variance error of "
+            "2e-6 relative; 1 unit at 1e6 rows")}
+        return out
     return compare
 
 

@@ -11,12 +11,16 @@ are evaluated in a single vmapped kernel:
 - null handling is a per-row validity weight (product of the family columns'
   validity), reproducing the reference's pairwise-deletion semantics
   (dataset/dataset.hpp:238-335) without dynamic shapes;
-- sufficient statistics are one masked Gram matrix per family — an (n × p)
-  matmul — followed by a tiny masked solve.
+- sufficient statistics are one masked, centred Gram matrix per family
+  (:func:`family_gram`) followed by a tiny masked solve.
 
-The Grams are uncentred, so ``rss = yy − β·b`` cancels: every matmul here
-runs at ``Precision.HIGHEST`` (full float32; the default lets a GPU use
-TF32, which keeps about three decimal digits).
+The Grams take the data's dtype, and are built to keep float32's
+precision when that is float32: every matmul runs at ``Precision.HIGHEST`` (the default lets a
+GPU use TF32, which keeps about three decimal digits); the columns are
+centred on their means first, so ``rss = syy − β·sxy`` does not cancel
+against the squared means; and the rows are summed in blocks of
+:data:`GRAM_BLOCK`, then across blocks, instead of in one float32 sum over
+all n rows, whose rounding grows with n.
 """
 
 from __future__ import annotations
@@ -30,57 +34,97 @@ import jax.numpy as jnp
 LOG_2PI = math.log(2.0 * math.pi)
 HIGHEST = jax.lax.Precision.HIGHEST
 _MACHINE_TOL = 2.220446049250313e-16 * 4
+#: Rows per partial Gram: each partial is a float32 sum of at most this
+#: many products, and the partials are summed afterwards.
+GRAM_BLOCK = 1024
 
 
-def _family_design(values, valid, var_idx, parent_idx, parent_mask):
-    """Design matrix [1, parents(masked), y] (n, P+2) and row weights (n,)."""
-    n = values.shape[0]
+def _family_columns(values, valid, var_idx, parent_idx, parent_mask):
+    """Family columns [parents(masked), y] (n, P+1) and row weights (n,)."""
     y = values[:, var_idx]
     X = values[:, parent_idx] * parent_mask[None, :]
     w = valid[:, var_idx] * jnp.prod(
         jnp.where(parent_mask[None, :] > 0, valid[:, parent_idx], 1.0), axis=1
     )
-    ones = jnp.ones((n, 1), values.dtype)
-    design = jnp.concatenate([ones, X, y[:, None]], axis=1)
-    return design, w
+    return jnp.concatenate([X, y[:, None]], axis=1), w
+
+
+def _column_sums(z, w):
+    """(Σ_n w_n·z_n, Σ_n w_n)."""
+    return jnp.sum(z * w[:, None], axis=0), jnp.sum(w)
+
+
+def _centred_moments(z, w, mean):
+    """Σ_n w_n·(z_n − mean)(z_n − mean)ᵀ, summed over blocks of
+    :data:`GRAM_BLOCK` rows and then across the blocks."""
+    n, k = z.shape
+    block = min(GRAM_BLOCK, n)
+    nb = -(-n // block)
+    zc = z - mean[None, :]
+    pad = ((0, nb * block - n), (0, 0))
+    a = jnp.pad(zc * w[:, None], pad).reshape(nb, block, k)
+    b = jnp.pad(zc, pad).reshape(nb, block, k)
+    parts = jnp.einsum(
+        "bni,bnj->bij", a, b,
+        precision=HIGHEST, preferred_element_type=z.dtype,
+    )
+    return jnp.sum(parts, axis=0)
+
+
+def family_gram(z, w, reduce=lambda t: t):
+    """Centred Gram of family columns ``z`` (n, P+1) under row weights ``w``.
+
+    Returns (P+2, P+2): entry [0, 0] is n_eff = Σ w, row and column 0 hold
+    the weighted column means, and the lower-right block the moments about
+    those means. ``reduce`` combines partial sums across devices (a psum
+    over the mesh's row axis); it is called on the column sums and then on
+    the moments."""
+    sums, n_eff = reduce(_column_sums(z, w))
+    mean = sums / jnp.maximum(n_eff, 1.0)
+    moments = reduce(_centred_moments(z, w, mean))
+    top = jnp.concatenate([n_eff[None], mean])
+    rest = jnp.concatenate([mean[:, None], moments], axis=1)
+    return jnp.concatenate([top[None, :], rest], axis=0)
 
 
 @jax.jit
 def family_grams(values, valid, var_idx, parent_idx, parent_mask):
-    """Masked Gram matrices for F families.
+    """Masked, centred Gram matrices (:func:`family_gram`) for F families.
 
     values: (n, D) data (nulls zeroed), valid: (n, D) 0/1 validity,
     var_idx: (F,) int, parent_idx: (F, P) int, parent_mask: (F, P) 0/1.
-    Returns grams (F, P+2, P+2) over columns [1, parents, y] and n_eff (F,).
+    Returns grams (F, P+2, P+2) over columns [parents, y] and n_eff (F,).
     """
 
     def one(vi, pi, pm):
-        design, w = _family_design(values, valid, vi, pi, pm)
-        gram = jnp.einsum(
-            "ni,nj->ij", design * w[:, None], design,
-            precision=HIGHEST, preferred_element_type=design.dtype,
-        )
-        return gram, jnp.sum(w)
+        z, w = _family_columns(values, valid, vi, pi, pm)
+        gram = family_gram(z, w)
+        return gram, gram[0, 0]
 
     return jax.vmap(one)(var_idx, parent_idx, parent_mask)
 
 
 def lg_params_from_gram(gram, parent_mask, n_eff):
-    """(beta, variance, rss) from one family Gram (reference
-    mle_LinearGaussianCPD.hpp closed forms, generalized).
+    """(beta, variance, rss) from one centred family Gram
+    (:func:`family_gram`; reference mle_LinearGaussianCPD.hpp closed forms,
+    generalized).
 
     beta is padded to P+1 entries [intercept, slopes]; masked-out parents get
     slope 0. variance = RSS / (n - k - 1), +inf when underdetermined
     (mle_LinearGaussianCPD.hpp:203-230, :173-186)."""
-    P = parent_mask.shape[0]
-    m = jnp.concatenate([jnp.ones((1,), gram.dtype), parent_mask])
-    A = gram[: P + 1, : P + 1] * m[:, None] * m[None, :] + jnp.diag(1.0 - m)
-    b = gram[: P + 1, P + 1] * m
-    yy = gram[P + 1, P + 1]
-    # Gram matrices are SPD: a Cholesky solve, at every dtype.
-    chol = jnp.linalg.cholesky(A)
-    beta = jax.scipy.linalg.cho_solve((chol, True), b)
-    rss = yy - jnp.dot(beta, b, precision=HIGHEST)
+    m = parent_mask
+    P = m.shape[0]
+    mean_x = gram[0, 1 : P + 1]
+    mean_y = gram[0, P + 1]
+    S = gram[1 : P + 1, 1 : P + 1] * m[:, None] * m[None, :] + jnp.diag(1.0 - m)
+    sxy = gram[1 : P + 1, P + 1] * m
+    syy = gram[P + 1, P + 1]
+    # the centred moment matrix is SPD: a Cholesky solve, at every dtype.
+    chol = jnp.linalg.cholesky(S)
+    slopes = jax.scipy.linalg.cho_solve((chol, True), sxy)
+    intercept = mean_y - jnp.dot(slopes, mean_x, precision=HIGHEST)
+    beta = jnp.concatenate([intercept[None], slopes])
+    rss = syy - jnp.dot(slopes, sxy, precision=HIGHEST)
     rss = jnp.maximum(rss, 0.0)
     k = jnp.sum(parent_mask)
     dof = n_eff - k - 1.0
@@ -130,17 +174,13 @@ def batched_lg_cv_loglik(values, valid, train_mask, test_mask, var_idx,
     log-likelihood across folds; -inf when any fold is degenerate."""
 
     def one_family(vi, pi, pm):
-        design, w = _family_design(values, valid, vi, pi, pm)
-        y = design[:, -1]
+        z, w = _family_columns(values, valid, vi, pi, pm)
+        y = z[:, -1]
 
         def one_fold(tm, sm):
-            wtr = w * tm
-            gram = jnp.einsum(
-                "ni,nj->ij", design * wtr[:, None], design,
-                precision=HIGHEST, preferred_element_type=design.dtype,
-            )
-            beta, variance, _ = lg_params_from_gram(gram, pm, jnp.sum(wtr))
-            mean = jnp.matmul(design[:, :-1], beta, precision=HIGHEST)
+            gram = family_gram(z, w * tm)
+            beta, variance, _ = lg_params_from_gram(gram, pm, gram[0, 0])
+            mean = beta[0] + jnp.matmul(z[:, :-1], beta[1:], precision=HIGHEST)
             ll = (
                 -0.5 * jnp.square(y - mean) / variance
                 - 0.5 * jnp.log(variance)
@@ -169,9 +209,9 @@ def batched_lg_holdout_loglik(train_values, train_valid, test_values,
     )
 
     def one(vi, pi, pm, beta, variance):
-        design, w = _family_design(test_values, test_valid, vi, pi, pm)
-        y = design[:, -1]
-        mean = jnp.matmul(design[:, :-1], beta, precision=HIGHEST)
+        z, w = _family_columns(test_values, test_valid, vi, pi, pm)
+        y = z[:, -1]
+        mean = beta[0] + jnp.matmul(z[:, :-1], beta[1:], precision=HIGHEST)
         ll = (
             -0.5 * jnp.square(y - mean) / variance
             - 0.5 * jnp.log(variance)

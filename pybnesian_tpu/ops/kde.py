@@ -368,11 +368,11 @@ def cv_pairs_route(platform: str, dtype) -> str:
 
 
 @partial(jax.jit, static_argnames=("rule", "block_m", "block_n",
-                                   "num_warps", "interpret"))
+                                   "interpret"))
 def ckde_cv_alldevice_flash(data, null_mask, col_idx, col_mask, tr_idx,
                             tr_mask, te_idx, te_mask, rule="nr",
                             block_m: int = 32, block_n: int = 128,
-                            num_warps: int = 4, interpret: bool = False):
+                            interpret: bool = False):
     """Streaming variant of :func:`ckde_cv_alldevice`: whitening in XLA
     (:func:`ckde_cv_whitened_parts`), then the pairwise double logsumexp in
     the Pallas kernel :func:`pybnesian_tpu.ops.pallas_kde.
@@ -415,8 +415,7 @@ def ckde_cv_alldevice_flash(data, null_mask, col_idx, col_mask, tr_idx,
         zv_te.reshape(G, -1).astype(jnp.float32),
         no_ev.reshape(G),
         lm_const.reshape(G),
-        block_m=block_m, block_n=block_n, num_warps=num_warps,
-        interpret=interpret,
+        block_m=block_m, block_n=block_n, interpret=interpret,
     ).reshape(F, K, -1)[:, :, :nte]
     out = jnp.where(wte > 0, out, 0.0)
     fold_ll = jnp.sum(out * wte, axis=2) + lndiff * jnp.sum(wte, axis=2)

@@ -98,11 +98,14 @@ def _ckde_cv_kernel(flag_ref, lmc_ref, tr_ref, neg_ref, zvtr_ref, te_ref,
                                               with_marginal)
 
 
-@partial(jax.jit, static_argnames=("block_m", "block_n", "num_warps",
-                                   "interpret"))
+#: Warps per program of :func:`pallas_ckde_cv_pairs`.
+NUM_WARPS = 4
+
+
+@partial(jax.jit, static_argnames=("block_m", "block_n", "interpret"))
 def pallas_ckde_cv_pairs(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const,
                          block_m: int = 32, block_n: int = 128,
-                         num_warps: int = 4, interpret: bool = False):
+                         interpret: bool = False):
     """(G, nte) per-test-point ``logsumexp_joint − logsumexp_marg`` (without
     lognorm constants) for G = F·K (family, fold) pairs, all float32.
 
@@ -112,7 +115,8 @@ def pallas_ckde_cv_pairs(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const,
     of ``block_m``; zv_te: (G, nte). ``no_ev`` (G,) flags evidence-free
     families, whose marginal logsumexp is the constant ``lm_const[g]``
     (= log n_eff). ``dpad``, ``block_m`` and ``block_n`` are powers of two;
-    the defaults were the fastest of a sweep on an H100 (PERF.md)."""
+    the defaults and :data:`NUM_WARPS` were the fastest of a sweep on an
+    H100 (PERF.md)."""
     G, ntr, dpad = jtr.shape
     nte = jte.shape[1]
     kernel = partial(_ckde_cv_kernel, block_n=block_n, dpad=dpad)
@@ -131,7 +135,7 @@ def pallas_ckde_cv_pairs(jtr, neg, zv_tr, jte, zv_te, no_ev, lm_const,
         out_specs=pl.BlockSpec((None, block_m), lambda g, i: (g, i)),
         out_shape=jax.ShapeDtypeStruct((G, nte), jnp.float32),
         backend="triton",
-        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
                                              num_stages=2),
         interpret=interpret,
         name="ckde_cv_pairs",

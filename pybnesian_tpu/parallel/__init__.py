@@ -18,7 +18,13 @@ import numpy as np
 from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as P
 
-from ..ops.gaussian import LOG_2PI, _MACHINE_TOL, lg_params_from_gram
+from ..ops.gaussian import (
+    LOG_2PI,
+    _MACHINE_TOL,
+    _family_columns,
+    family_gram,
+    lg_params_from_gram,
+)
 
 try:  # jax>=0.6 moved shard_map to jax.shard_map
     from jax import shard_map as _shard_map_mod
@@ -60,20 +66,18 @@ def data_fam_mesh(n_devices: int | None = None, fam: int = 1) -> Mesh:
     return make_mesh({"data": n // fam, "fam": fam})
 
 
-def _local_family_gram(values, valid, vi, pi, pm):
-    y = values[:, vi]
-    X = values[:, pi] * pm[None, :]
-    w = valid[:, vi] * jnp.prod(
-        jnp.where(pm[None, :] > 0, valid[:, pi], 1.0), axis=1
-    )
-    ones = jnp.ones((values.shape[0], 1), values.dtype)
-    design = jnp.concatenate([ones, X, y[:, None]], axis=1)
-    gram = jnp.einsum(
-        "ni,nj->ij", design * w[:, None], design,
-        precision=jax.lax.Precision.HIGHEST,
-        preferred_element_type=design.dtype,
-    )
-    return gram, jnp.sum(w)
+def _sharded_family_grams(values, valid, var_idx, parent_idx, parent_mask):
+    """Centred family Grams (ops.gaussian.family_gram) of this shard's
+    families over the rows of every 'data' shard: one psum of the column
+    sums (the shared means), then one of the moments, for the whole batch."""
+    psum = partial(jax.lax.psum, axis_name="data")
+
+    def one(vi, pi, pm):
+        z, w = _family_columns(values, valid, vi, pi, pm)
+        return family_gram(z, w, reduce=psum)
+
+    grams = jax.vmap(one)(var_idx, parent_idx, parent_mask)
+    return grams, grams[:, 0, 0]
 
 
 def sharded_batched_bic(mesh: Mesh, values, valid, var_idx, parent_idx,
@@ -96,12 +100,7 @@ def sharded_batched_bic(mesh: Mesh, values, valid, var_idx, parent_idx,
         out_specs=P("fam"),
     )
     def kernel(v, m, vi, pi, pm):
-        # all families' shard-local Grams first, then ONE fused psum for
-        # the whole batch — a single collective per score call
-        grams, ws = jax.vmap(
-            lambda vi_, pi_, pm_: _local_family_gram(v, m, vi_, pi_, pm_)
-        )(vi, pi, pm)
-        grams, n_effs = jax.lax.psum((grams, ws), "data")
+        grams, n_effs = _sharded_family_grams(v, m, vi, pi, pm)
 
         def one(gram, n_eff, pm_):
             _, variance, _ = lg_params_from_gram(gram, pm_, n_eff)
@@ -139,10 +138,7 @@ def sharded_lg_fit(mesh: Mesh, values, valid, var_idx, parent_idx,
         out_specs=(P("fam", None), P("fam")),
     )
     def kernel(v, m, vi, pi, pm):
-        grams, ws = jax.vmap(
-            lambda vi_, pi_, pm_: _local_family_gram(v, m, vi_, pi_, pm_)
-        )(vi, pi, pm)
-        grams, n_effs = jax.lax.psum((grams, ws), "data")
+        grams, n_effs = _sharded_family_grams(v, m, vi, pi, pm)
 
         def one(gram, n_eff, pm_):
             beta, variance, _ = lg_params_from_gram(gram, pm_, n_eff)
@@ -190,47 +186,43 @@ def sharded_ckde_cv(mesh: Mesh, data, null_mask, col_idx, col_mask, tr_idx,
     )
 
 
-def sharded_kde_slogl(mesh: Mesh, train_white, test_white, lognorm,
-                      one_collective: bool | None = None):
-    """KDE sum-log-likelihood with training points sharded over 'data': a
-    numerically stable distributed logsumexp over the training axis.
+def _kde_logits(tr, te):
+    tn = jnp.sum(jnp.square(tr), axis=1)
+    cross = jnp.dot(
+        te, tr.T, precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=te.dtype,
+    )
+    d2 = jnp.sum(jnp.square(te), axis=1)[:, None] - 2.0 * cross + tn[None, :]
+    return -0.5 * d2
 
-    Two formulations. ``one_collective=True``: each shard shifts by its
-    LOCAL max and ONE all_gather moves the (max, shifted sum) pairs — one
-    collective latency, with a tiny (2·shards·m) payload. ``False``: the
-    classic pmax then psum, two collectives. ``None`` picks all_gather off
-    the CPU and pmax+psum on CPU meshes, where collectives are memcpys with
-    no latency to save. Which form is faster across GPUs has not been
-    measured."""
-    if one_collective is None:
-        one_collective = mesh.devices.flat[0].platform != "cpu"
+
+def _lse_all_gather(logits):
+    """Row logsumexp across 'data' shards with ONE collective: each shard
+    shifts by its local max and an all_gather moves the (max, shifted sum)
+    pairs, a (2·shards·m) payload."""
+    local_max = jnp.max(logits, axis=1)
+    local_sum = jnp.sum(jnp.exp(logits - local_max[:, None]), axis=1)
+    pairs = jax.lax.all_gather(jnp.stack([local_max, local_sum]), "data")
+    maxes, sums = pairs[:, 0, :], pairs[:, 1, :]
+    gmax = jnp.max(maxes, axis=0)
+    return gmax + jnp.log(jnp.sum(sums * jnp.exp(maxes - gmax[None, :]), 0))
+
+
+def _lse_pmax_psum(logits):
+    """Row logsumexp across 'data' shards with two collectives: the global
+    max (pmax), then the shifted sums (psum)."""
+    gmax = jax.lax.pmax(jnp.max(logits, axis=1), "data")
+    total = jax.lax.psum(
+        jnp.sum(jnp.exp(logits - gmax[:, None]), axis=1), "data"
+    )
+    return gmax + jnp.log(total)
+
+
+def _sharded_kde_slogl(mesh, train_white, test_white, lognorm, lse):
+    """sharded_kde_slogl with the cross-shard logsumexp ``lse``."""
 
     def kernel(tr, te, ln):
-        tn = jnp.sum(jnp.square(tr), axis=1)
-        cross = jnp.dot(
-            te, tr.T, precision=jax.lax.Precision.HIGHEST,
-            preferred_element_type=te.dtype,
-        )
-        d2 = jnp.sum(jnp.square(te), axis=1)[:, None] - 2.0 * cross + tn[None, :]
-        logits = -0.5 * d2
-        local_max = jnp.max(logits, axis=1)
-        if one_collective:
-            local_sum = jnp.sum(
-                jnp.exp(logits - local_max[:, None]), axis=1
-            )
-            pair = jnp.stack([local_max, local_sum])  # (2, m)
-            pairs = jax.lax.all_gather(pair, "data")  # (shards, 2, m)
-            maxes = pairs[:, 0, :]
-            sums = pairs[:, 1, :]
-            gmax = jnp.max(maxes, axis=0)
-            total = jnp.sum(sums * jnp.exp(maxes - gmax[None, :]), axis=0)
-        else:
-            gmax = jax.lax.pmax(local_max, "data")
-            total = jax.lax.psum(
-                jnp.sum(jnp.exp(logits - gmax[:, None]), axis=1), "data"
-            )
-        ll = gmax + jnp.log(total) + ln
-        return jnp.sum(ll)
+        return jnp.sum(lse(_kde_logits(tr, te)) + ln)
 
     # post-all_gather the result is identical on every shard, but the
     # static replication checker cannot infer that — disable it rather
@@ -248,3 +240,16 @@ def sharded_kde_slogl(mesh: Mesh, train_white, test_white, lognorm,
             out_specs=P(), check_rep=False,
         )
     return fn(train_white, test_white, lognorm)
+
+
+def sharded_kde_slogl(mesh: Mesh, train_white, test_white, lognorm):
+    """KDE sum-log-likelihood with training points sharded over 'data': a
+    numerically stable distributed logsumexp over the training axis.
+
+    Off the CPU the logsumexp takes one all_gather (:func:`_lse_all_gather`);
+    on CPU meshes, where collectives are memcpys with no latency to save,
+    pmax then psum (:func:`_lse_pmax_psum`). Which form is faster across
+    GPUs has not been measured."""
+    lse = (_lse_pmax_psum if mesh.devices.flat[0].platform == "cpu"
+           else _lse_all_gather)
+    return _sharded_kde_slogl(mesh, train_white, test_white, lognorm, lse)

@@ -60,12 +60,13 @@ def test_gaussian_grams_are_highest(kernel):
 
 
 def test_sharded_gram_is_highest():
-    from pybnesian_tpu.parallel import _local_family_gram
+    from pybnesian_tpu.parallel import make_mesh, sharded_batched_bic
 
-    a = _lg_args()
+    a = _lg_args(F=2)
+    mesh = make_mesh({"data": 2, "fam": 1})
     precs = _dot_precisions(
-        lambda v, m: _local_family_gram(v, m, 0, a["parent_idx"][0],
-                                        a["parent_mask"][0]),
+        lambda v, m: sharded_batched_bic(mesh, v, m, a["var_idx"],
+                                         a["parent_idx"], a["parent_mask"]),
         a["values"], a["valid"])
     assert precs and all(_is_highest(p) for p in precs), precs
 

@@ -110,6 +110,26 @@ def test_sharded_kde_slogl():
     np.testing.assert_allclose(float(out), ref, rtol=1e-8)
 
 
+@pytest.mark.parametrize("form", ["_lse_all_gather", "_lse_pmax_psum"])
+def test_sharded_kde_slogl_forms(form):
+    """Both cross-shard logsumexp forms, whichever the platform picks."""
+    from scipy.special import logsumexp
+
+    from pybnesian_tpu import parallel
+
+    rng = np.random.default_rng(1)
+    train = rng.normal(0, 2, (96, 2))
+    test = rng.normal(0, 2, (8, 2))
+    mesh = make_mesh({"data": 4})
+    out = parallel._sharded_kde_slogl(
+        mesh, jnp.asarray(train), jnp.asarray(test), jnp.asarray(-1.0),
+        lse=getattr(parallel, form),
+    )
+    ref = (logsumexp(-0.5 * ((test[:, None, :] - train[None, :, :]) ** 2)
+                     .sum(-1), axis=1) - 1.0).sum()
+    np.testing.assert_allclose(float(out), ref, rtol=1e-8)
+
+
 def test_graft_entry_dryrun():
     import __graft_entry__ as ge
 
